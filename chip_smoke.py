@@ -11,20 +11,30 @@ non-zero:
    power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the port from ``ndstpu_torch/ops/csrc``,
    one ``nvcc`` per source, all started together;
-3. data: the q3-family warehouse generated on the card at ``--scale``;
+3. data: the store-channel warehouse generated on the card at
+   ``--scale``;
 4. kernels: each kernel against its plain PyTorch version on the card,
-   bit-exact (tolerance 0: exact int64), at the main path's own inputs
-   (captured from a q42 run), at a large Zipf-skewed shape and at the
-   edges; with its time, its plain version's time, a one-call PyTorch
-   yardstick's time and the least time the card could take (its bound);
+   with its time, its plain version's time, a one-call PyTorch
+   yardstick's time and the least time the card could take (its bound):
+   ``segsum_decimal`` bit-exact (tolerance 0: exact int64) at the main
+   path's own inputs (captured from a q42 run), at a large Zipf-skewed
+   shape and at the edges; ``segsum_f32`` within rtol 3e-4, atol 1.0 at
+   the bench shape (4,000,000 rows x 1,024 segments) and rtol 2e-5,
+   atol 1e-2 at the edges (float atomics add in no fixed order);
 5. slice: q3, q42, q52 and q55 through ``Session(device="cuda").sql`` —
    cold and warm times, rows, peak device memory and host syncs — each
    held against a plain numpy reference written here, independent of
-   the engine; the kernel launch counts are set to 0 just before and read
-   just after, and every kernel of the path must have launched.
+   the engine;
+6. bench: ``ndstpu_torch.ops.bench``'s main at its defaults, the path
+   that runs ``segsum_f32``;
+7. store slice: q9, q43, q88 and q93 through the same session, recorded
+   and held against the numpy reference as in phase 5 (decimals exact,
+   q9's averages within 1e-5 relative).
 
-Then one JSON line of kernels, and last the result line
-``{"ok": true, "device": {...}}``.
+Phases 5, 6 and 7 are the main paths: the kernel launch counts are set
+to 0 just before each and read just after, and every kernel each path
+runs must have launched.  Then one JSON line of kernels, and last the
+result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -39,58 +49,13 @@ import time
 import numpy as np
 import torch
 
+from ndstpu_torch.queries import Q9_BUCKETS, QUERIES, STORE_QUERIES
+
 # H100 SXM HBM3 rate (NVIDIA data sheet): the bound of a byte-bound kernel
 HBM_BYTES_PER_S = 3.35e12
 LIMIT = 100
 SEGMENTS_Q42 = 24443
-
-# the four templates rendered as ndstpu/queries/streamgen.py renders them
-# (rngseed 07291122510, stream 0)
-QUERIES = {
-    "q3": """select dt.d_year, item.i_brand_id brand_id, item.i_brand brand,
-       sum(ss_ext_sales_price) sum_agg
-from date_dim dt, store_sales, item
-where dt.d_date_sk = store_sales.ss_sold_date_sk
-  and store_sales.ss_item_sk = item.i_item_sk
-  and item.i_manufact_id = 162
-  and dt.d_moy = 11
-group by dt.d_year, item.i_brand_id, item.i_brand
-order by dt.d_year, sum_agg desc, brand_id
-limit 100""",
-    "q42": """select dt.d_year, item.i_category_id, item.i_category,
-       sum(ss_ext_sales_price) total
-from date_dim dt, store_sales, item
-where dt.d_date_sk = store_sales.ss_sold_date_sk
-  and store_sales.ss_item_sk = item.i_item_sk
-  and item.i_manager_id = 1
-  and dt.d_moy = 12
-  and dt.d_year = 2000
-group by dt.d_year, item.i_category_id, item.i_category
-order by total desc, dt.d_year, item.i_category_id, item.i_category
-limit 100""",
-    "q52": """select dt.d_year, item.i_brand_id brand_id, item.i_brand brand,
-       sum(ss_ext_sales_price) ext_price
-from date_dim dt, store_sales, item
-where dt.d_date_sk = store_sales.ss_sold_date_sk
-  and store_sales.ss_item_sk = item.i_item_sk
-  and item.i_manager_id = 1
-  and dt.d_moy = 11
-  and dt.d_year = 1999
-group by dt.d_year, item.i_brand, item.i_brand_id
-order by dt.d_year, ext_price desc, brand_id
-limit 100""",
-    "q55": """select i_brand_id brand_id, i_brand brand,
-       sum(ss_ext_sales_price) ext_price
-from date_dim, store_sales, item
-where d_date_sk = ss_sold_date_sk
-  and ss_item_sk = i_item_sk
-  and i_manager_id = 7
-  and d_moy = 11
-  and d_year = 1999
-group by i_brand, i_brand_id
-order by ext_price desc, brand_id
-limit 100""",
-}
+BENCH_ROWS, BENCH_SEGMENTS = 4_000_000, 1024
 
 # the reference's reading of each query: dimension filters, group key,
 # output columns and ORDER BY (column, descending)
@@ -224,8 +189,60 @@ def kernel_phase(segsum, q42_inputs, seed: int) -> dict:
     return dict(main, max_abs_err=err)
 
 
+def check_segsum_f32(segsum, vals, gid, mask, s, rtol, atol) -> float:
+    """f32 kernel against plain within (rtol, atol); max abs error."""
+    k = segsum.segment_sum_f32(vals, gid, mask, s)
+    p = segsum.segment_sum_f32_plain(vals, gid, mask, s)
+    torch.cuda.synchronize()
+    err = float((k - p).abs().max())
+    if k.dtype != torch.float32 or k.shape != p.shape or not torch.allclose(
+            k, p, rtol=rtol, atol=atol):
+        raise AssertionError(f"segsum_f32 disagrees with its plain version "
+                             f"at n={vals.shape[0]} s={s}: {err}")
+    return err
+
+
+def kernel_phase_f32(segsum, seed: int) -> dict:
+    """segsum_f32 at the bench shape (the inputs of its main path, the
+    segment-sum bench) and at the edges."""
+    from ndstpu_torch.ops import bench
+    x = bench.inputs(BENCH_ROWS, BENCH_SEGMENTS, "cuda")
+    v, g, m, s = x["vals_f"], x["gid"], x["mask"], BENCH_SEGMENTS
+    err = check_segsum_f32(segsum, v, g, m, s, 3e-4, 1.0)
+    n = v.shape[0]
+    kernel_ms = cuda_ms(lambda: segsum.segment_sum_f32(v, g, m, s), 50)
+    plain_ms = cuda_ms(lambda: segsum.segment_sum_f32_plain(v, g, m, s), 50)
+    library_ms = cuda_ms(lambda: bench.library_f32(v, g, m, s), 50)
+    # 9 bytes a row read (float32, int32, bool), 4 a segment written
+    bound_ms = (9 * n + 4 * s) / HBM_BYTES_PER_S * 1e3
+    main = dict(n=n, segments=s, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms)
+    say("kernel", name="segsum_f32", shape="bench 4M x 1024", **main)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    e = 4096
+    ev = (torch.rand(e, generator=gen, device="cuda") * 200 - 100)
+    eg = torch.randint(0, 37, (e,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    em = torch.rand(e, generator=gen, device="cuda") < 0.8
+    edges = {
+        "all masked": (ev, eg, torch.zeros_like(em), 37),
+        "gid out of range": (ev, eg - 5, em, 30),
+        "one segment": (ev, eg * 0, em, 1),
+        "segments above rows": (ev[:100], eg[:100], em[:100], 20000),
+    }
+    for name, (ev2, eg2, em2, s2) in edges.items():
+        err = max(err, check_segsum_f32(segsum, ev2.contiguous(),
+                                        eg2.contiguous(), em2.contiguous(),
+                                        s2, 2e-5, 1e-2))
+    if bool(segsum.segment_sum_f32(*edges["all masked"]).any()):
+        raise AssertionError("segsum_f32: all-masked sums are not 0")
+    say("kernel", name="segsum_f32", edges=list(edges), max_abs_err=err)
+    return dict(main, max_abs_err=err)
+
+
 # ---------------------------------------------------------------------------
-# plain numpy reference of the four queries
+# plain numpy reference of the queries
 # ---------------------------------------------------------------------------
 
 
@@ -286,6 +303,162 @@ class Reference:
         return sort_rows(out, spec)
 
 
+def _host(cat, table, col):
+    """(data, valid or None) of one generated column, on the host; string
+    columns decoded through their dictionary."""
+    c = cat.get(table).column(col)
+    data = c.data.cpu().numpy()
+    if c.dictionary is not None:
+        data = c.dictionary[data]
+    return data, None if c.valid is None else c.valid.cpu().numpy()
+
+
+def _dense_index(dim_keys: np.ndarray, keys: np.ndarray, valid) -> np.ndarray:
+    """Row of the (dense, ascending) dimension key each fact key joins,
+    or -1 for a NULL key."""
+    assert (np.diff(dim_keys) == 1).all()
+    idx = keys.astype(np.int64) - int(dim_keys[0])
+    assert ((idx >= 0) & (idx < len(dim_keys)))[
+        valid if valid is not None else slice(None)].all()
+    return idx if valid is None else np.where(valid, idx, -1)
+
+
+class StoreReference:
+    """q9, q43, q88 and q93 answered from host copies of the generated
+    tables with numpy alone; each method returns the result rows in the
+    query's order (decimals as scaled int64, averages as floats)."""
+
+    def __init__(self, cat):
+        self.cat = cat
+
+    def col(self, table, col):
+        return _host(self.cat, table, col)[0]
+
+    def q9(self) -> list:
+        if not (self.col("reason", "r_reason_sk") == 1).any():
+            return []
+        q = self.col("store_sales", "ss_quantity")
+        row = []
+        for lo, hi, t in Q9_BUCKETS:
+            sel = (q >= lo) & (q <= hi)
+            n = int(sel.sum())
+            vals = self.col("store_sales", "ss_ext_discount_amt"
+                            if n > t else "ss_net_paid")
+            row.append(int(vals[sel].sum()) / n / 100 if n else None)
+        return [tuple(row)]
+
+    def q43(self) -> list:
+        days = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+                "Friday", "Saturday")
+        date_sk, date_ok = _host(self.cat, "store_sales", "ss_sold_date_sk")
+        store_sk, store_ok = _host(self.cat, "store_sales", "ss_store_sk")
+        price = self.col("store_sales", "ss_sales_price")
+        didx = _dense_index(self.col("date_dim", "d_date_sk"), date_sk,
+                            date_ok)
+        sidx = _dense_index(self.col("store", "s_store_sk"), store_sk,
+                            store_ok)
+        day = np.array([days.index(d) for d in
+                        self.col("date_dim", "d_day_name")] + [0])
+        year_ok = np.append(self.col("date_dim", "d_year") == 1999, False)
+        gmt_ok = np.append(self.col("store", "s_gmt_offset") == -600, False)
+        sel = year_ok[didx] & gmt_ok[sidx]
+        n_store = len(gmt_ok) - 1
+        grp = sidx[sel] * 7 + day[didx[sel]]
+        # integer sums below 2^53 are exact in float64
+        sums = np.bincount(grp, weights=price[sel], minlength=n_store * 7)
+        cnts = np.bincount(grp, minlength=n_store * 7)
+        assert sums.max(initial=0) < 2 ** 53
+        names = self.col("store", "s_store_name")
+        ids = self.col("store", "s_store_id")
+        assert len(set(ids.tolist())) == n_store
+        out = []
+        for st in range(n_store):
+            c = cnts[st * 7:(st + 1) * 7]
+            if c.sum() == 0:
+                continue
+            out.append((names[st], ids[st]) + tuple(
+                int(v) if k else None
+                for v, k in zip(sums[st * 7:(st + 1) * 7], c)))
+        return sorted(out, key=lambda r: (r[0], r[1]))[:LIMIT]
+
+    def q88(self) -> list:
+        time_sk, _ = _host(self.cat, "store_sales", "ss_sold_time_sk")
+        hdemo, _ = _host(self.cat, "store_sales", "ss_hdemo_sk")
+        store_sk, store_ok = _host(self.cat, "store_sales", "ss_store_sk")
+        tidx = _dense_index(self.col("time_dim", "t_time_sk"), time_sk, None)
+        hidx = _dense_index(self.col("household_demographics", "hd_demo_sk"),
+                            hdemo, None)
+        sidx = _dense_index(self.col("store", "s_store_sk"), store_sk,
+                            store_ok)
+        ese = np.append(self.col("store", "s_store_name") == "ese", False)
+        base = (self.col("household_demographics", "hd_dep_count")[hidx]
+                == 3) & ese[sidx]
+        hour = self.col("time_dim", "t_hour")[tidx]
+        minute = self.col("time_dim", "t_minute")[tidx]
+        row = []
+        for h, late in ((8, True), (9, False), (9, True), (10, False)):
+            part = (minute >= 30) if late else (minute < 30)
+            row.append(int((base & (hour == h) & part).sum()))
+        return [tuple(row)]
+
+    def q93(self) -> list:
+        # the reasons named 'reason 35'
+        rsk = self.col("reason", "r_reason_sk")
+        wanted = rsk[self.col("reason", "r_reason_desc") == "reason 35"]
+        sr_reason, sr_reason_ok = _host(self.cat, "store_returns",
+                                        "sr_reason_sk")
+        keep = np.isin(sr_reason, wanted)
+        if sr_reason_ok is not None:
+            keep &= sr_reason_ok
+        # the left join's NULL-extended rows fail sr_reason_sk = r_reason_sk,
+        # so the result is the matched pairs: per (item, ticket) key of the
+        # kept returns, their number and their summed return quantity
+        item_mul = int(self.col("store_sales", "ss_item_sk").max()) + 1
+        rkey = (self.col("store_returns", "sr_ticket_number")[keep] *
+                item_mul + self.col("store_returns", "sr_item_sk")[keep])
+        ukey, inv = np.unique(rkey, return_inverse=True)
+        rcnt = np.bincount(inv, minlength=len(ukey))
+        rqty = np.zeros(len(ukey), np.int64)
+        np.add.at(rqty, inv, self.col("store_returns",
+                                      "sr_return_quantity")[keep])
+        skey = (self.col("store_sales", "ss_ticket_number") * item_mul +
+                self.col("store_sales", "ss_item_sk"))
+        pos = np.clip(np.searchsorted(ukey, skey), 0, max(len(ukey) - 1, 0))
+        hit = np.nonzero(ukey[pos] == skey)[0] if len(ukey) else \
+            np.zeros(0, np.int64)
+        p = pos[hit]
+        price = self.col("store_sales", "ss_sales_price")[hit]
+        act = (rcnt[p] * self.col("store_sales", "ss_quantity")[hit] -
+               rqty[p]) * price
+        cust, cust_ok = _host(self.cat, "store_sales", "ss_customer_sk")
+        c = np.where(cust_ok[hit], cust[hit], -1).astype(np.int64)
+        uc, cinv = np.unique(c, return_inverse=True)
+        tot = np.zeros(len(uc), np.int64)
+        np.add.at(tot, cinv, act)
+        rows = [(None if k < 0 else int(k), int(v)) for k, v in zip(uc, tot)]
+        rows.sort(key=lambda r: (r[1], r[0] is not None, r[0] or 0))
+        return rows[:LIMIT]
+
+
+def rows_match(want: list, got: list, rel: float = 1e-5) -> bool:
+    """Exact for ints and strings, ``rel`` relative for floats."""
+    if len(want) != len(got):
+        return False
+    for a, b in zip(want, got):
+        if len(a) != len(b):
+            return False
+        for x, y in zip(a, b):
+            if x is None or y is None:
+                if x is not y:
+                    return False
+            elif isinstance(x, float) or isinstance(y, float):
+                if abs(x - y) > rel * max(abs(x), abs(y)) + 1e-12:
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
 def order_key(row, spec):
     pos = {c: j for j, c in enumerate(spec["out"])}
     return tuple(-row[pos[c]] if desc else row[pos[c]]
@@ -296,15 +469,18 @@ def sort_rows(rows, spec):
     return sorted(rows, key=lambda r: order_key(r, spec))
 
 
-def engine_rows(table) -> list:
-    """Result table -> tuples of python ints/strings (decimals stay
-    scaled int64, so the comparison is exact)."""
+def engine_rows(table, nulls: bool = False) -> list:
+    """Result table -> tuples of python ints/strings/floats (decimals
+    stay scaled int64, so the comparison is exact).  NULLs become None
+    where ``nulls`` allows them."""
     cols = []
     for c in table.columns.values():
-        if c.valid is not None and not c.valid.all():
+        valid = np.ones(len(c.data), bool) if c.valid is None else c.valid
+        if not nulls and not valid.all():
             raise AssertionError("unexpected NULL in a result column")
         data = c.dictionary[c.data] if c.dictionary is not None else c.data
-        cols.append(data.tolist())
+        cols.append([v if ok else None
+                     for v, ok in zip(data.tolist(), valid.tolist())])
     return list(zip(*cols))
 
 
@@ -387,13 +563,28 @@ def main() -> int:
     k = kernel_phase(segsum, captured[0], args.seed)
     del captured
 
+    kf = kernel_phase_f32(segsum, args.seed)
+
     t0 = time.time()
     ref = Reference(cat)
     say("reference", seconds=time.time() - t0)
 
-    segsum.LAUNCHES = 0
-    for q, sql in QUERIES.items():
-        before = segsum.LAUNCHES
+    # the engine's routing decision for each grouped sum: a query whose
+    # sums pass the kernel's gates must launch the kernel
+    routed = []
+    gate = sess.executor._kernel_sum_ok
+
+    def spy_gate(c, ngseg):
+        ok = gate(c, ngseg)
+        routed.append(ok)
+        return ok
+
+    sess.executor._kernel_sum_ok = spy_gate
+
+    def run_query(q, sql, nulls=False):
+        """Cold and warm runs of one query; (rows, record)."""
+        before = (segsum.LAUNCHES, segsum.LAUNCHES_F32)
+        routed.clear()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         out = sess.sql(sql)
@@ -405,19 +596,58 @@ def main() -> int:
             again = sess.sql(sql)
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t1) * 1e3)
-        got = engine_rows(out)
-        if engine_rows(again) != got:
+        got = engine_rows(out, nulls)
+        if engine_rows(again, nulls) != got:
             raise AssertionError(f"{q}: warm run differs from cold run")
+        launched = segsum.LAUNCHES - before[0]
+        if any(routed) and launched == 0:
+            raise AssertionError(f"{q} routes sums to segsum_decimal but "
+                                 f"launched it no time")
+        return got, dict(
+            query=q, cold_ms=cold, warm_median_ms=statistics.median(warm),
+            rows=len(got), peak_bytes=torch.cuda.max_memory_allocated(),
+            host_syncs=sess.executor.n_syncs, routes_to_kernel=any(routed),
+            kernel_launches=launched,
+            f32_kernel_launches=segsum.LAUNCHES_F32 - before[1], card=card)
+
+    # main path 1: the q3 family
+    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    for q, sql in QUERIES.items():
+        got, rec = run_query(q, sql)
         compare(ref.answer(REFERENCE[q]), got, REFERENCE[q])
-        say("slice", query=q, cold_ms=cold, warm_median_ms=statistics.median(
-            warm), rows=len(got), peak_bytes=torch.cuda.max_memory_allocated(),
-            host_syncs=sess.executor.n_syncs,
-            kernel_launches=segsum.LAUNCHES - before, card=card)
-        if q == "q42" and segsum.LAUNCHES == before:
-            raise AssertionError("q42 did not launch segsum_decimal")
-    launches = segsum.LAUNCHES
-    if launches == 0:
+        say("slice", **rec)
+        if q == "q42" and not rec["routes_to_kernel"]:
+            raise AssertionError("q42 does not route to segsum_decimal")
+    family_launches = segsum.LAUNCHES
+    if family_launches == 0:
         raise AssertionError("the slice launched no segsum_decimal")
+    del ref
+
+    # main path 2: the segment-sum bench
+    from ndstpu_torch.ops import bench
+    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    rec = bench.main([])
+    bench_launches = (segsum.LAUNCHES, segsum.LAUNCHES_F32)
+    say("bench", launches_decimal=bench_launches[0],
+        launches_f32=bench_launches[1], card=card)
+    if bench_launches[1] == 0 or bench_launches[0] == 0:
+        raise AssertionError(f"the bench did not launch both kernels: "
+                             f"{bench_launches}")
+
+    # main path 3: the store-channel reports
+    t0 = time.time()
+    sref = StoreReference(cat)
+    want = {q: getattr(sref, q)() for q in STORE_QUERIES}
+    say("store reference", seconds=time.time() - t0)
+    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    for q, sql in STORE_QUERIES.items():
+        got, rec = run_query(q, sql, nulls=True)
+        if not rows_match(want[q], got):
+            raise AssertionError(f"{q}: {got[:3]} vs reference "
+                                 f"{want[q][:3]} ({len(got)} vs "
+                                 f"{len(want[q])} rows)")
+        say("store slice", **rec)
+    store_launches = segsum.LAUNCHES
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -425,10 +655,24 @@ def main() -> int:
         "source": "ndstpu_torch/ops/csrc/segsum_decimal.cu",
         "replaces": "ndstpu/ops/segsum.py:141",
         "tpu_kernel": "ndstpu/ops/segsum.py::_limb_kernel",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
+        "launches": family_launches + bench_launches[0] + store_launches,
+        "launches_by_path": {"q3 family": family_launches,
+                             "bench": bench_launches[0],
+                             "store slice": store_launches},
+        "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": "bytes", "library_ms": k["library_ms"]}]}))
+        "bound_by": "bytes", "library_ms": k["library_ms"]}, {
+        "name": "segsum_f32", "route": "cuda",
+        "source": "ndstpu_torch/ops/csrc/segsum_f32.cu",
+        "replaces": "ndstpu/ops/segsum.py:59",
+        "tpu_kernel": "ndstpu/ops/segsum.py::_f32_kernel",
+        "launches": bench_launches[1],
+        "launches_by_path": {"bench": bench_launches[1]},
+        "max_abs_err": kf["max_abs_err"],
+        "ms": kf["kernel_ms"], "kernel_ms": kf["kernel_ms"],
+        "plain_ms": kf["plain_ms"], "bound_ms": kf["bound_ms"],
+        "bound_by": "bytes", "library_ms": kf["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,21 +1,30 @@
-"""Generate the q3-family warehouse directly on the device.
+"""Generate the store-channel warehouse directly on the device.
 
-Builds ``date_dim``, ``item`` and ``store_sales`` as tensors on ``device``
-with one explicit ``torch.Generator``, following the models of the JAX
-package's C++ generator (``ndstpu/datagen/ndsgen.cpp``):
+Builds the tables the port's slices read as tensors on ``device`` with one
+explicit ``torch.Generator``, following the models of the JAX package's
+C++ generator (``ndstpu/datagen/ndsgen.cpp``):
 
 * row counts from its step table (TPC-DS spec Table 3-2: SF 1/10/100/1000,
   linear for facts and log-linear for dimensions in between);
 * ``gen_sale``: 2% NULL ``ss_sold_date_sk``, dates uniform over
-  1998-01-02..2003-01-02 with 30% of sales moved into Nov/Dec, Zipf
-  ``ss_item_sk`` with the coprime scatter, ``ext_sales = quantity x sales``
-  in the same cent ranges;
+  1998-01-02..2003-01-02 with 30% of sales moved into Nov/Dec, time of day
+  uniform, Zipf ``ss_item_sk`` and ``ss_customer_sk`` (3% NULL) with the
+  coprime scatter, uniform ``ss_hdemo_sk`` and ``ss_store_sk`` (2% NULL),
+  ``ss_ticket_number = row / 3 + 1``, and the cent arithmetic of
+  ``sales``, ``ext_discount`` and ``net_paid`` (15% of sales carry a
+  coupon of up to half the extended price);
+* ``return_parent_row`` / ``gen_return``: return ``j`` is sale
+  ``(j * stride) mod n``, whose item and ticket it carries, with a return
+  quantity uniform up to the sale's and a uniform reason;
 * ``gen_item``: weighted category and class (``dists.json`` weights), the
   ``brand_id = (cat+1)*10^6 + (cls+1)*10^3 + brand`` encoding, ``i_brand``
   strings, ``i_manufact_id`` 1..1000, ``i_manager_id`` 1..100;
-* ``gen_date_dim``: the calendar from 1900-01-02, 73,049 days.
+* ``gen_date_dim``: the calendar from 1900-01-02, 73,049 days, with the
+  day names;
+* ``gen_store``, ``gen_reason``, ``gen_household_demographics`` and
+  ``gen_time_dim``.
 
-Only the columns the q3 family reads are generated.  The numbers are not
+Only the columns of :data:`COLUMNS` are generated.  The numbers are not
 ndsgen's (the random streams differ); the distributions are.
 """
 
@@ -28,15 +37,23 @@ import numpy as np
 import torch
 
 from ndstpu_torch.engine.columnar import Column, Table
+from ndstpu_torch.engine.torchexec import civil_from_days
 from ndstpu_torch.io.catalog import Catalog
 from ndstpu_torch.schema import DType, get_schemas
 
 # published row counts at SF 1 / 10 / 100 / 1000 (ndsgen.cpp compute_sizes)
 _STEPS = {
     "store_sales": ((2880404, 28800991, 287997024, 2879987999), True),
+    "store_returns": ((287514, 2875432, 28795080, 287999764), True),
     "item": ((18000, 102000, 204000, 300000), False),
+    "customer": ((100000, 500000, 2000000, 12000000), False),
+    "store": ((12, 102, 402, 1002), False),
+    "reason": ((35, 45, 55, 65), False),
 }
 DATE_DIM_ROWS = 73049
+TIME_DIM_ROWS = 86400
+HOUSEHOLD_DEMOGRAPHICS_ROWS = 7200
+_TICKET_SPREAD = 3
 _JD_EPOCH_1970 = 2440588
 _DATE_DIM_FIRST_JD = 2415022        # 1900-01-02
 _SALES_FIRST_JD = 2450816           # 1998-01-02
@@ -56,13 +73,50 @@ _CLASSES = ("accent", "bathroom", "bedding", "classical", "country",
 _CLASS_WEIGHTS = (4, 4, 5, 3, 3, 6, 4, 4, 4, 6, 4, 3, 6, 3, 5, 5, 4, 2, 2, 4,
                   3, 3, 3, 3, 3, 4, 3, 3, 2, 2)
 _BRANDS_PER_CLASS = 10
+_DAY_NAMES = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+              "Friday", "Saturday")
+# ndsgen.cpp kLastNames (store names are "<last name> Store")
+_LAST_NAMES = (
+    "Smith", "Johnson", "Williams", "Brown", "Jones", "Garcia", "Miller",
+    "Davis", "Rodriguez", "Martinez", "Hernandez", "Lopez", "Gonzalez",
+    "Wilson", "Anderson", "Thomas", "Taylor", "Moore", "Jackson", "Martin",
+    "Lee", "Perez", "Thompson", "White", "Harris", "Sanchez", "Clark",
+    "Ramirez", "Lewis", "Robinson", "Walker", "Young", "Allen", "King",
+    "Wright", "Scott", "Torres", "Nguyen", "Hill", "Flores")
+# dists.json "store_gmt" (hours, weights)
+_STORE_GMT = ((-5, -6), (60, 40))
+# dists.json "reasons": descriptions cycle through these 35 entries
+_REASONS = (
+    "Package was damaged", "Stopped working", "Did not get it on time",
+    "Not the product that was ordred", "Parts missing",
+    "Does not work with a product that I have", "Gift exchange",
+    "Did not like the color", "Did not like the model",
+    "Did not like the make", "Did not like the warranty",
+    "No service location in my area", "Found a better price in a store",
+    "Found a better extended warranty") + tuple(
+        f"reason {i}" for i in range(15, 36))
+# dists.json "buy_potential"
+_BUY_POTENTIAL = ("0-500", "501-1000", "1001-5000", "5001-10000", ">10000",
+                  "Unknown")
 
 # the generated columns, per table
 COLUMNS = {
-    "date_dim": ("d_date_sk", "d_year", "d_moy"),
+    "date_dim": ("d_date_sk", "d_year", "d_moy", "d_day_name"),
     "item": ("i_item_sk", "i_brand_id", "i_brand", "i_category_id",
              "i_category", "i_manufact_id", "i_manager_id"),
-    "store_sales": ("ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price"),
+    "store_sales": ("ss_sold_date_sk", "ss_sold_time_sk", "ss_item_sk",
+                    "ss_customer_sk", "ss_hdemo_sk", "ss_store_sk",
+                    "ss_ticket_number", "ss_quantity", "ss_sales_price",
+                    "ss_ext_discount_amt", "ss_ext_sales_price",
+                    "ss_net_paid"),
+    "store_returns": ("sr_item_sk", "sr_reason_sk", "sr_ticket_number",
+                      "sr_return_quantity"),
+    "store": ("s_store_sk", "s_store_id", "s_store_name", "s_gmt_offset"),
+    "reason": ("r_reason_sk", "r_reason_id", "r_reason_desc"),
+    "household_demographics": ("hd_demo_sk", "hd_income_band_sk",
+                               "hd_buy_potential", "hd_dep_count",
+                               "hd_vehicle_count"),
+    "time_dim": ("t_time_sk", "t_time", "t_hour", "t_minute", "t_second"),
 }
 
 _CHUNK_ROWS = 1 << 25
@@ -93,23 +147,21 @@ def sizes(scale: float) -> Dict[str, int]:
     """Row counts of the generated tables at ``scale``."""
     out = {t: _step_count(scale, s, fact) for t, (s, fact) in _STEPS.items()}
     out["date_dim"] = DATE_DIM_ROWS
+    out["time_dim"] = TIME_DIM_ROWS
+    out["household_demographics"] = HOUSEHOLD_DEMOGRAPHICS_ROWS
     return out
 
 
-def civil_from_days(days: torch.Tensor):
-    """days since 1970-01-01 -> (year, month, day), integer math only
-    (jaxexec._civil_from_days, in int64)."""
-    z = days.to(torch.int64) + 719468
-    era = torch.div(z, 146097, rounding_mode="floor")
-    doe = z - era * 146097
-    yoe = torch.div(doe - doe // 1460 + doe // 36524 - doe // 146096, 365,
-                    rounding_mode="floor")
-    y = yoe + era * 400
-    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
-    mp = torch.div(5 * doy + 2, 153, rounding_mode="floor")
-    d = doy - torch.div(153 * mp + 2, 5, rounding_mode="floor") + 1
-    m = mp + torch.where(mp < 10, 3, -9)
-    return y + (m <= 2).to(torch.int64), m, d
+def bkey(sk: int) -> str:
+    """ndsgen.cpp bkey: the 16-character business key of a surrogate key
+    (base-26 digits of ``sk`` right-aligned, padded with 'A')."""
+    out = ["A"] * 16
+    i = 15
+    while i >= 0 and sk:
+        out[i] = chr(ord("A") + sk % 26)
+        sk //= 26
+        i -= 1
+    return "".join(out)
 
 
 def _days_from_civil(y: int, m: int, d: int) -> int:
@@ -160,12 +212,86 @@ def _string_column(values, idx: torch.Tensor
 def _date_dim(device) -> Table:
     jd = torch.arange(DATE_DIM_ROWS, dtype=torch.int64,
                       device=device) + _DATE_DIM_FIRST_JD
-    y, m, _ = civil_from_days(jd - _JD_EPOCH_1970)
+    days70 = jd - _JD_EPOCH_1970
+    y, m, _ = civil_from_days(days70)
+    dow = torch.remainder(days70 + 4, 7)       # 0 = Sunday
+    day_codes, day_dict = _string_column(_DAY_NAMES, dow)
     return Table({
         "d_date_sk": Column(jd.to(torch.int32),
                             _ctype("date_dim", "d_date_sk")),
-        "d_year": Column(y, _ctype("date_dim", "d_year")),
-        "d_moy": Column(m, _ctype("date_dim", "d_moy")),
+        "d_year": Column(y.to(torch.int64), _ctype("date_dim", "d_year")),
+        "d_moy": Column(m.to(torch.int64), _ctype("date_dim", "d_moy")),
+        "d_day_name": Column(day_codes, _ctype("date_dim", "d_day_name"),
+                             None, day_dict),
+    })
+
+
+def _time_dim(device) -> Table:
+    sk = torch.arange(TIME_DIM_ROWS, dtype=torch.int64, device=device)
+    ct = lambda c: _ctype("time_dim", c)  # noqa: E731
+    return Table({
+        "t_time_sk": Column(sk.to(torch.int32), ct("t_time_sk")),
+        "t_time": Column(sk, ct("t_time")),
+        "t_hour": Column(sk // 3600, ct("t_hour")),
+        "t_minute": Column((sk // 60) % 60, ct("t_minute")),
+        "t_second": Column(sk % 60, ct("t_second")),
+    })
+
+
+def _household_demographics(device) -> Table:
+    i = torch.arange(HOUSEHOLD_DEMOGRAPHICS_ROWS, dtype=torch.int64,
+                     device=device)
+    nbp = len(_BUY_POTENTIAL)
+    bp_codes, bp_dict = _string_column(_BUY_POTENTIAL, (i // 20) % nbp)
+    ct = lambda c: _ctype("household_demographics", c)  # noqa: E731
+    return Table({
+        "hd_demo_sk": Column((i + 1).to(torch.int32), ct("hd_demo_sk")),
+        "hd_income_band_sk": Column((i % 20 + 1).to(torch.int32),
+                                    ct("hd_income_band_sk")),
+        "hd_buy_potential": Column(bp_codes, ct("hd_buy_potential"), None,
+                                   bp_dict),
+        "hd_dep_count": Column((i // (20 * nbp)) % 10, ct("hd_dep_count")),
+        "hd_vehicle_count": Column((i // (200 * nbp)) % 6,
+                                   ct("hd_vehicle_count")),
+    })
+
+
+def _keyed_strings(n: int, fn, device) -> Tuple[torch.Tensor, np.ndarray]:
+    """Codes of ``fn(sk)`` for sk in 1..n against their sorted
+    dictionary (each value distinct)."""
+    values = [fn(sk) for sk in range(1, n + 1)]
+    return _string_column(values, torch.arange(n, device=device))
+
+
+def _store(n: int, gen, device) -> Table:
+    name = _uniform_int(0, len(_LAST_NAMES) - 1, n, gen, device)
+    name_codes, name_dict = _string_column(
+        [f"{s} Store" for s in _LAST_NAMES], name)
+    gmt = torch.tensor(_STORE_GMT[0], dtype=torch.int64, device=device)[
+        _weighted_pick(_STORE_GMT[1], n, gen, device)]
+    id_codes, id_dict = _keyed_strings(n, bkey, device)
+    ct = lambda c: _ctype("store", c)  # noqa: E731
+    return Table({
+        "s_store_sk": Column(torch.arange(1, n + 1, dtype=torch.int32,
+                                          device=device), ct("s_store_sk")),
+        "s_store_id": Column(id_codes, ct("s_store_id"), None, id_dict),
+        "s_store_name": Column(name_codes, ct("s_store_name"), None,
+                               name_dict),
+        "s_gmt_offset": Column(gmt * 100, ct("s_gmt_offset")),
+    })
+
+
+def _reason(n: int, device) -> Table:
+    id_codes, id_dict = _keyed_strings(n, bkey, device)
+    desc_codes, desc_dict = _string_column(
+        _REASONS, torch.arange(n, device=device) % len(_REASONS))
+    ct = lambda c: _ctype("reason", c)  # noqa: E731
+    return Table({
+        "r_reason_sk": Column(torch.arange(1, n + 1, dtype=torch.int32,
+                                           device=device), ct("r_reason_sk")),
+        "r_reason_id": Column(id_codes, ct("r_reason_id"), None, id_dict),
+        "r_reason_desc": Column(desc_codes, ct("r_reason_desc"), None,
+                                desc_dict),
     })
 
 
@@ -194,53 +320,119 @@ def _item(n: int, gen, device) -> Table:
     })
 
 
-def _store_sales(n: int, n_item: int, gen, device) -> Table:
-    date_sk = torch.empty(n, dtype=torch.int32, device=device)
-    date_ok = torch.empty(n, dtype=torch.bool, device=device)
-    item_sk = torch.empty(n, dtype=torch.int32, device=device)
-    ext_sales = torch.empty(n, dtype=torch.int64, device=device)
+def _store_sales(n: int, sz: Dict[str, int], gen, device) -> Table:
+    def empty(dtype):
+        return torch.empty(n, dtype=dtype, device=device)
+    date_sk, time_sk, item_sk, cust_sk, hdemo_sk, store_sk = (
+        empty(torch.int32) for _ in range(6))
+    date_ok, cust_ok, store_ok = (empty(torch.bool) for _ in range(3))
+    quantity, sales_price, ext_discount, ext_sales, net_paid = (
+        empty(torch.int64) for _ in range(5))
     # Nov 1 of each sales year, as a Julian day (holiday-season skew)
     years = range(1998, 2004)
     nov1 = torch.tensor([_days_from_civil(y, 11, 1) + _JD_EPOCH_1970
                          for y in years], dtype=torch.int64, device=device)
+
+    def chance(p: float, k: int) -> torch.Tensor:
+        return torch.rand(k, generator=gen, device=device,
+                          dtype=torch.float64) < p
+
     for b in range(0, n, _CHUNK_ROWS):
         e = min(n, b + _CHUNK_ROWS)
         k = e - b
-        null = torch.rand(k, generator=gen, device=device,
-                          dtype=torch.float64) < 0.02
+        date_ok[b:e] = ~chance(0.02, k)
         jd = _uniform_int(_SALES_FIRST_JD, _SALES_LAST_JD, k, gen, device)
-        holiday = torch.rand(k, generator=gen, device=device,
-                             dtype=torch.float64) < 0.30
+        holiday = chance(0.30, k)
         hol_off = _uniform_int(0, 60, k, gen, device)
         y, _, _ = civil_from_days(jd - _JD_EPOCH_1970)
         y = torch.clamp(y, max=2002)   # Nov 2003 exceeds the window
         jd = torch.where(holiday, nov1[y - years[0]] + hol_off, jd)
         date_sk[b:e] = jd.to(torch.int32)
-        date_ok[b:e] = ~null
-        item_sk[b:e] = _zipf(n_item, k, gen, device).to(torch.int32)
-        quantity = _uniform_int(1, 100, k, gen, device)
+        time_sk[b:e] = _uniform_int(0, 86399, k, gen, device).to(torch.int32)
+        item_sk[b:e] = _zipf(sz["item"], k, gen, device).to(torch.int32)
+        cust_ok[b:e] = ~chance(0.03, k)
+        cust_sk[b:e] = _zipf(sz["customer"], k, gen, device).to(torch.int32)
+        hdemo_sk[b:e] = _uniform_int(
+            1, sz["household_demographics"], k, gen, device).to(torch.int32)
+        store_ok[b:e] = ~chance(0.02, k)
+        store_sk[b:e] = _uniform_int(1, sz["store"], k, gen,
+                                     device).to(torch.int32)
+        q = _uniform_int(1, 100, k, gen, device)
         wholesale = _uniform_int(100, 10000, k, gen, device)
         lst = wholesale + _uniform_int(0, wholesale, k, gen, device)
         sales = (lst * _uniform_int(20, 100, k, gen, device)) // 100
-        ext_sales[b:e] = quantity * sales
+        ext = q * sales
+        coupon = torch.where(chance(0.15, k),
+                             _uniform_int(0, ext // 2, k, gen, device), 0)
+        quantity[b:e] = q
+        sales_price[b:e] = sales
+        ext_discount[b:e] = q * lst - ext
+        ext_sales[b:e] = ext
+        net_paid[b:e] = ext - coupon
+    ticket = torch.arange(n, dtype=torch.int64, device=device) // \
+        _TICKET_SPREAD + 1
     ct = lambda c: _ctype("store_sales", c)  # noqa: E731
     return Table({
         "ss_sold_date_sk": Column(date_sk, ct("ss_sold_date_sk"), date_ok),
+        "ss_sold_time_sk": Column(time_sk, ct("ss_sold_time_sk")),
         "ss_item_sk": Column(item_sk, ct("ss_item_sk")),
+        "ss_customer_sk": Column(cust_sk, ct("ss_customer_sk"), cust_ok),
+        "ss_hdemo_sk": Column(hdemo_sk, ct("ss_hdemo_sk")),
+        "ss_store_sk": Column(store_sk, ct("ss_store_sk"), store_ok),
+        "ss_ticket_number": Column(ticket, ct("ss_ticket_number")),
+        "ss_quantity": Column(quantity, ct("ss_quantity")),
+        "ss_sales_price": Column(sales_price, ct("ss_sales_price")),
+        "ss_ext_discount_amt": Column(ext_discount,
+                                      ct("ss_ext_discount_amt")),
         "ss_ext_sales_price": Column(ext_sales, ct("ss_ext_sales_price")),
+        "ss_net_paid": Column(net_paid, ct("ss_net_paid")),
+    })
+
+
+def return_parent_rows(n_ret: int, n_sales: int, device) -> torch.Tensor:
+    """ndsgen.cpp return_parent_row: return ``j`` is sale
+    ``(j * stride) mod n_sales`` with ``stride = max(n_sales // n_ret,
+    1)``."""
+    stride = max(n_sales // max(n_ret, 1), 1)
+    j = torch.arange(n_ret, dtype=torch.int64, device=device)
+    return (j * stride) % n_sales
+
+
+def _store_returns(n: int, sales: Table, n_reason: int, gen,
+                   device) -> Table:
+    parent = return_parent_rows(n, sales.num_rows, device)
+    qty = sales.column("ss_quantity").data[parent]
+    ct = lambda c: _ctype("store_returns", c)  # noqa: E731
+    return Table({
+        "sr_item_sk": Column(sales.column("ss_item_sk").data[parent],
+                             ct("sr_item_sk")),
+        "sr_reason_sk": Column(
+            _uniform_int(1, n_reason, n, gen, device).to(torch.int32),
+            ct("sr_reason_sk")),
+        "sr_ticket_number": Column(
+            sales.column("ss_ticket_number").data[parent],
+            ct("sr_ticket_number")),
+        "sr_return_quantity": Column(_uniform_int(1, qty, n, gen, device),
+                                     ct("sr_return_quantity")),
     })
 
 
 def generate(scale: float, seed: int, device) -> Catalog:
-    """A catalog of ``date_dim``, ``item`` and ``store_sales`` at
-    ``scale``, generated on ``device`` from ``seed``."""
+    """A catalog of the tables of :data:`COLUMNS` at ``scale``, generated
+    on ``device`` from ``seed``."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     n = sizes(scale)
     cat = Catalog()
     cat.register("date_dim", _date_dim(device))
+    cat.register("time_dim", _time_dim(device))
+    cat.register("household_demographics", _household_demographics(device))
     cat.register("item", _item(n["item"], gen, device))
-    cat.register("store_sales",
-                 _store_sales(n["store_sales"], n["item"], gen, device))
+    cat.register("store", _store(n["store"], gen, device))
+    cat.register("reason", _reason(n["reason"], device))
+    sales = _store_sales(n["store_sales"], n, gen, device)
+    cat.register("store_sales", sales)
+    cat.register("store_returns", _store_returns(
+        n["store_returns"], sales, n["reason"], gen, device))
     return cat

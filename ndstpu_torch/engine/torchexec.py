@@ -34,13 +34,14 @@ has one, so no plan quietly leaves the device.
 from __future__ import annotations
 
 import dataclasses
+import re
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ndstpu_torch.engine import columnar, expr as ex, plan as lp
+from ndstpu_torch.engine import columnar, expr as ex, fp64, plan as lp
 from ndstpu_torch.engine.columnar import (
     BOOL,
     DATE,
@@ -205,6 +206,69 @@ def _gather_cols(cols: Dict[str, DCol], idx: torch.Tensor,
     return out
 
 
+def _union_bounds(a: Optional[Tuple[int, int]],
+                  b: Optional[Tuple[int, int]]):
+    if a is None or b is None:
+        return None
+    return (min(a[0], b[0]), max(a[1], b[1]))
+
+
+def _select_cols(cols_a: Dict[str, DCol], cols_b: Dict[str, DCol],
+                 idx_a: torch.Tensor, idx_b: torch.Tensor,
+                 pick_a: torch.Tensor,
+                 extra_mask: Optional[torch.Tensor] = None
+                 ) -> Dict[str, DCol]:
+    """Two-source row select: out[n][p] = a[n][idx_a[p]] if pick_a[p]
+    else b[n][idx_b[p]].  When both columns resolve to the SAME base
+    tensors (a is a lazy view of b's source — the left-join shape), the
+    select collapses to ONE combined index and stays lazy; otherwise both
+    sides materialize and combine with ``where``."""
+    memo: Dict[tuple, _View] = {}
+    out: Dict[str, DCol] = {}
+    for n in cols_a:
+        a, b = cols_a[n], cols_b[n]
+        base_a = a.src_data if a.view is not None else a._data
+        base_b = b.src_data if b.view is not None else b._data
+        sv_a = a.src_valid if a.view is not None else a._valid
+        sv_b = b.src_valid if b.view is not None else b._valid
+        # collapsing to one lazy view uses side a's src_valid for rows
+        # picked from b — only sound when the VALIDITY bases match too
+        if base_a is base_b and sv_a is sv_b:
+            key = (id(a.view), id(b.view))
+            v2 = memo.get(key)
+            if v2 is None:
+                ia = a.view.idx[idx_a] if a.view is not None else idx_a
+                ib = b.view.idx[idx_b] if b.view is not None else idx_b
+                nidx = torch.where(pick_a, ia, ib)
+                ma = a.view.mask[idx_a] \
+                    if a.view is not None and a.view.mask is not None \
+                    else None
+                mb = b.view.mask[idx_b] \
+                    if b.view is not None and b.view.mask is not None \
+                    else None
+                if ma is None and mb is None:
+                    nmask = None
+                else:
+                    ones = torch.ones_like(pick_a)
+                    nmask = torch.where(pick_a,
+                                        ma if ma is not None else ones,
+                                        mb if mb is not None else ones)
+                if extra_mask is not None:
+                    nmask = extra_mask if nmask is None else \
+                        (nmask & extra_mask)
+                v2 = memo[key] = _View(nidx, nmask)
+            out[n] = DCol.lazy(base_a, sv_a, v2, a.ctype, a.dictionary,
+                               _union_bounds(a.bounds, b.bounds))
+        else:
+            data = torch.where(pick_a, a.data[idx_a], b.data[idx_b])
+            valid = torch.where(pick_a, a.valid[idx_a], b.valid[idx_b])
+            if extra_mask is not None:
+                valid = valid & extra_mask
+            out[n] = DCol(data, valid, a.ctype, a.dictionary,
+                          _union_bounds(a.bounds, b.bounds))
+    return out
+
+
 @dataclasses.dataclass
 class DTable:
     """Device table: named columns + alive mask, all of one capacity."""
@@ -282,11 +346,46 @@ class Unsupported(Exception):
 
     ``code`` is the static-analyzer diagnostic (NDS2xx, see
     ndstpu/analysis/diagnostics.py) jaxexec raises at the same place;
-    nodes jaxexec runs but the port does not yet stay uncoded."""
+    nodes jaxexec runs but the port does not yet stay uncoded.  ``node``
+    names the plan node that refused (``"SetOp"``, ``"Window"``, ...):
+    :meth:`TorchExecutor.execute` sets it on the way out when the raise
+    site did not."""
 
-    def __init__(self, msg: str, code: Optional[str] = None):
+    def __init__(self, msg: str, code: Optional[str] = None,
+                 node: Optional[str] = None):
         super().__init__(msg)
         self.code = code
+        self.node = node
+
+
+def civil_from_days(days: torch.Tensor):
+    """days since 1970-01-01 -> (year, month, day), integer math only
+    (jaxexec._civil_from_days: int32 throughout, safe while |days| +
+    719468 < 2^31, i.e. any date the engine can represent)."""
+    z = days.to(torch.int32) + 719468
+    era = torch.div(z, 146097, rounding_mode="floor")
+    doe = z - era * 146097
+    yoe = torch.div(doe - doe // 1460 + doe // 36524 - doe // 146096, 365,
+                    rounding_mode="floor")
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = torch.div(5 * doy + 2, 153, rounding_mode="floor")
+    d = doy - torch.div(153 * mp + 2, 5, rounding_mode="floor") + 1
+    m = mp + torch.where(mp < 10, 3, -9).to(torch.int32)
+    year = y + (m <= 2).to(torch.int32)
+    return year.to(torch.int32), m.to(torch.int32), d.to(torch.int32)
+
+
+def _like_to_regex(pattern: str) -> str:
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return "".join(out)
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +399,18 @@ def _dict_lookup_bool(c: DCol, fn) -> torch.Tensor:
     table = torch.as_tensor(np.concatenate([hits, [False]])).to(
         c.data.device)                                    # -1 -> False
     return table[c.data]
+
+
+def _dict_remap(c: DCol, fn) -> DCol:
+    """Host string->string map per dictionary entry -> new dict + gather."""
+    vals = [fn(str(x)) for x in c.dictionary]
+    uniq = np.unique(np.asarray(vals, dtype=str)) if vals else \
+        np.empty(0, dtype=str)
+    remap = (np.searchsorted(uniq, np.asarray(vals, dtype=str))
+             .astype(np.int32) if vals else np.empty(0, np.int32))
+    table = torch.as_tensor(np.concatenate([remap, [-1]]).astype(
+        np.int32)).to(c.data.device)
+    return DCol(table[c.data], c.valid, STRING, uniq.astype(object))
 
 
 def _translate(c: DCol, merged: np.ndarray) -> torch.Tensor:
@@ -329,8 +440,11 @@ def _merged_dict(cols: Sequence[DCol]) -> np.ndarray:
 class JEval:
     """Evaluates an Expr over a DTable with torch ops (jaxexec.JEval).
 
-    Ported so far: column refs, literals, casts, comparisons, and/or/not,
-    null tests, arithmetic and IN-lists."""
+    Ported: column refs, literals, casts, comparisons, and/or/not, null
+    tests, arithmetic, ``||``, CASE, IN-lists and the scalar functions.
+    String functions work on the dictionary: a host-side table of the
+    dictionary's values, then a gather of the codes on the device.
+    Parameters (canonical plans) are not ported yet."""
 
     _CMP = {"=", "<>", "<", "<=", ">", ">="}
     _ARITH = {"+", "-", "*", "/", "%"}
@@ -523,11 +637,12 @@ class JEval:
             return self._binop(e)
         if isinstance(e, ex.UnaryOp):
             return self._unary(e)
+        if isinstance(e, ex.Case):
+            return self._case(e)
+        if isinstance(e, ex.Func):
+            return self._func(e)
         if isinstance(e, ex.InList):
             return self._in_list(e)
-        if isinstance(e, ex.Func):
-            raise Unsupported(f"function {e.name} is not ported yet",
-                              code="NDS205")
         raise Unsupported(f"expr {type(e).__name__}", code="NDS201")
 
     def predicate(self, e: ex.Expr) -> torch.Tensor:
@@ -556,6 +671,8 @@ class JEval:
             return self._compare(op, lc, rc)
         if op in self._ARITH:
             return self._arith(op, lc, rc)
+        if op == "||":
+            return self._concat_pair(lc, rc)
         raise Unsupported(f"binop {op}", code="NDS202")
 
     def _align_compare(self, lc: DCol, rc: DCol):
@@ -667,6 +784,211 @@ class JEval:
             return DCol(c.valid, self._ones(), BOOL)
         raise Unsupported(f"unary {e.op}", code="NDS203")
 
+    def _zeros_bool(self) -> torch.Tensor:
+        return torch.zeros(self.cap, dtype=torch.bool, device=self.device)
+
+    def _case(self, e: ex.Case) -> DCol:
+        conds, vals = [], []
+        for cond, val in e.whens:
+            cc = self.eval(cond)
+            conds.append(cc.data.to(torch.bool) & cc.valid)
+            vals.append(self.eval(val))
+        default = self.eval(e.default) if e.default is not None else None
+        cands = vals + ([default] if default is not None else [])
+        tgt = cands[0].ctype
+        for c in cands[1:]:
+            if ex.is_numeric(c.ctype) and ex.is_numeric(tgt):
+                tgt = ex.common_type(tgt, c.ctype)
+            elif c.ctype.kind != tgt.kind:
+                tgt = c.ctype if tgt.kind == "int32" else tgt
+        if tgt.kind == "string":
+            # all-branch merged dictionary, then code selection on device
+            scols = [self.cast(v, STRING) for v in vals]
+            sdef = self.cast(default, STRING) if default is not None \
+                else None
+            allc = scols + ([sdef] if sdef is not None else [])
+            merged = _merged_dict(allc)
+            data = self._full(-2, torch.int32)
+            valid = self._zeros_bool()
+            taken = self._zeros_bool()
+            for cond, vc in zip(conds, scols):
+                sel = cond & ~taken
+                data = torch.where(sel, _translate(vc, merged), data)
+                valid = torch.where(sel, vc.valid, valid)
+                taken = taken | cond
+            if sdef is not None:
+                data = torch.where(taken, data, _translate(sdef, merged))
+                valid = torch.where(taken, valid, sdef.valid)
+            data = torch.where(valid, data, -1).to(torch.int32)
+            return DCol(data, valid, STRING, merged.astype(object))
+        dt = torch_dtype(tgt)
+        data = torch.zeros(self.cap, dtype=dt, device=self.device)
+        valid = self._zeros_bool()
+        taken = self._zeros_bool()
+        branch_bounds = []
+        for cond, val in zip(conds, vals):
+            vc = self.cast(val, tgt)
+            sel = cond & ~taken
+            data = torch.where(sel, vc.data.to(dt), data)
+            valid = torch.where(sel, vc.valid, valid)
+            taken = taken | cond
+            branch_bounds.append(vc.bounds)
+        if default is not None:
+            dc = self.cast(default, tgt)
+            data = torch.where(taken, data, dc.data.to(dt))
+            valid = torch.where(taken, valid, dc.valid)
+            # a NULL-literal default contributes no VALID rows, so it
+            # cannot widen the bounds of the output's valid values
+            if not (isinstance(e.default, ex.Literal)
+                    and e.default.value is None):
+                branch_bounds.append(dc.bounds)
+        bounds = None
+        if tgt.kind in ("int32", "int64", "decimal") and branch_bounds \
+                and all(b is not None for b in branch_bounds):
+            # every valid output row carries some branch's valid value,
+            # so the union of branch bounds bounds the output
+            bounds = (min(b[0] for b in branch_bounds),
+                      max(b[1] for b in branch_bounds))
+        return DCol(data, valid, tgt, bounds=bounds)
+
+    def _concat_pair(self, a: DCol, b: DCol) -> DCol:
+        """String concatenation on dictionary codes.  One-sided literal:
+        host remap of the other side's dictionary.  Dict x dict: host
+        cross-product dictionary (guarded against blowup) + device pair
+        codes.  NULL || x is NULL (SQL semantics)."""
+        if a.ctype.kind != "string" or b.ctype.kind != "string":
+            raise Unsupported("|| on non-string operands", code="NDS206")
+        da = a.dictionary if a.dictionary is not None else \
+            np.empty(0, object)
+        db = b.dictionary if b.dictionary is not None else \
+            np.empty(0, object)
+        na, nb = len(da), len(db)
+        valid = a.valid & b.valid & (a.data >= 0) & (b.data >= 0)
+        if na == 0 or nb == 0:  # one side all-NULL
+            return DCol(self._full(-1, torch.int32), self._zeros_bool(),
+                        STRING, np.empty(0, object))
+
+        def encode(vals: np.ndarray):
+            uniq, remap = np.unique(vals, return_inverse=True)
+            table = torch.as_tensor(np.concatenate(
+                [remap.reshape(-1).astype(np.int64), [-1]]).astype(
+                    np.int32)).to(self.device)
+            return uniq.astype(object), table
+
+        if na == 1 or nb == 1:
+            if nb == 1:
+                base, vals = a, np.char.add(da.astype(str), str(db[0]))
+            else:
+                base, vals = b, np.char.add(str(da[0]), db.astype(str))
+            uniq, table = encode(vals)
+            data = torch.where(valid, table[base.data], -1).to(torch.int32)
+            return DCol(data, valid, STRING, uniq)
+        if na * nb > (1 << 20):
+            raise Unsupported("|| dictionary cross-product too large",
+                              code="NDS213")
+        uniq, table = encode(np.char.add(np.repeat(da.astype(str), nb),
+                                         np.tile(db.astype(str), na)))
+        pair = torch.where(valid, a.data.to(torch.int64) * nb + b.data,
+                           na * nb)
+        return DCol(table[pair], valid, STRING, uniq)
+
+    def _func(self, e: ex.Func) -> DCol:
+        name = e.name
+        if name == "concat":
+            cols = [self.eval(a) for a in e.args]
+            out = cols[0]
+            for c in cols[1:]:
+                out = self._concat_pair(out, c)
+            return out
+        if name == "coalesce":
+            cols = [self.eval(a) for a in e.args]
+            tgt = ex.coalesce_common_type(e.args, [c.ctype for c in cols])
+            if tgt.kind == "string":
+                scols = [self.cast(c, STRING) for c in cols]
+                merged = _merged_dict(scols)
+                data = self._full(-1, torch.int32)
+                valid = self._zeros_bool()
+                for c in scols:
+                    take = ~valid & c.valid
+                    data = torch.where(take, _translate(c, merged), data)
+                    valid = valid | c.valid
+                return DCol(data, valid, STRING, merged.astype(object))
+            dt = torch_dtype(tgt)
+            data = torch.zeros(self.cap, dtype=dt, device=self.device)
+            valid = self._zeros_bool()
+            for c in cols:
+                cc = self.cast(c, tgt)
+                take = ~valid & cc.valid
+                data = torch.where(take, cc.data.to(dt), data)
+                valid = valid | cc.valid
+            return DCol(data, valid, tgt)
+        if name == "like":
+            c = self.eval(e.args[0])
+            rx = re.compile(_like_to_regex(e.args[1].value), re.S)
+            data = _dict_lookup_bool(
+                c, lambda s: rx.fullmatch(s) is not None)
+            return DCol(data, c.valid, BOOL)
+        if name in ("substr", "substring"):
+            c = self.eval(e.args[0])
+            start = int(e.args[1].value)
+            length = int(e.args[2].value) if len(e.args) > 2 else None
+
+            def sub(s: str) -> str:
+                i = start - 1 if start > 0 else len(s) + start
+                return s[i:i + length] if length is not None else s[i:]
+            out = _dict_remap(self.cast(c, STRING)
+                              if c.ctype.kind != "string" else c, sub)
+            return DCol(out.data, c.valid, STRING, out.dictionary)
+        if name in ("upper", "lower", "trim"):
+            c = self._as_string(e.args[0])
+            fn = {"upper": str.upper, "lower": str.lower,
+                  "trim": str.strip}[name]
+            out = _dict_remap(c, fn)
+            return DCol(out.data, c.valid, STRING, out.dictionary)
+        if name == "length":
+            c = self._as_string(e.args[0])
+            lens = np.array([len(str(x)) for x in c.dictionary] + [0],
+                            dtype=np.int32)
+            return DCol(torch.as_tensor(lens).to(self.device)[c.data],
+                        c.valid, INT32)
+        if name == "abs":
+            c = self.eval(e.args[0])
+            return DCol(torch.abs(c.data), c.valid, c.ctype)
+        if name == "round":
+            c = self.eval(e.args[0])
+            nd = int(e.args[1].value) if len(e.args) > 1 else 0
+            if c.ctype.kind == "decimal":
+                if nd >= c.ctype.scale:
+                    return c
+                return self.cast(c, decimal(c.ctype.precision, nd))
+            m = 10.0 ** nd
+            x = c.data.to(torch.float64)
+            data = torch.floor(torch.abs(x) * m + 0.5) / m * torch.sign(x)
+            return DCol(data, c.valid, FLOAT64)
+        if name in ("floor", "ceil", "sqrt"):
+            c = self.cast(self.eval(e.args[0]), FLOAT64)
+            fn = {"floor": torch.floor, "ceil": torch.ceil,
+                  "sqrt": lambda x: torch.sqrt(torch.clamp(x, min=0))}[name]
+            return DCol(fn(c.data), c.valid, FLOAT64)
+        if name in ("year", "month", "day"):
+            c = self.eval(e.args[0])
+            y, m, d = civil_from_days(c.data)
+            return DCol({"year": y, "month": m, "day": d}[name],
+                        c.valid, INT32)
+        if name == "nullif":
+            a = self.eval(e.args[0])
+            b = self.eval(e.args[1])
+            eqc = self._compare("=", a, b)
+            eq = eqc.data & eqc.valid
+            return DCol(a.data, a.valid & ~eq, a.ctype, a.dictionary)
+        raise Unsupported(f"function {name}", code="NDS205")
+
+    def _as_string(self, arg: ex.Expr) -> DCol:
+        c = self.eval(arg)
+        if c.ctype.kind != "string":
+            raise Unsupported("cast-to-string on device", code="NDS206")
+        return c
+
     def _in_list(self, e: ex.InList) -> DCol:
         c = self.eval(e.operand)
         had_null = False
@@ -722,9 +1044,13 @@ def _minmax_vals(data: torch.Tensor, valid: torch.Tensor, kind: str,
     return data.masked_fill(~valid, info.max if is_min else info.min)
 
 
-def _sum_input(data: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Exact int64 summation input for decimal/int sums."""
-    return data.to(torch.int64).masked_fill(~valid, 0)
+def _sum_input(data: torch.Tensor, valid: torch.Tensor,
+               kind: str) -> torch.Tensor:
+    """Summation input: decimal/int sums stay exact int64, float sums are
+    float64."""
+    if kind in ("decimal", "int32", "int64"):
+        return data.to(torch.int64).masked_fill(~valid, 0)
+    return data.to(torch.float64).masked_fill(~valid, 0.0)
 
 
 def _key_i64(c: DCol, alive: torch.Tensor,
@@ -842,8 +1168,9 @@ class TorchExecutor:
     """Eager plan executor on torch tensors (jaxexec.JaxExecutor).
 
     ``n_syncs`` counts the host syncs of the last query: each
-    data-dependent capacity (join fan-out, compaction) and each bounds
-    check reads one value back from the device."""
+    data-dependent capacity (join fan-out, compaction), each bounds
+    check, each branch decision and each subquery result reads back from
+    the device once."""
 
     # the segment-sum kernel takes aggregates over at most this many
     # segments (jaxexec._PALLAS_SEGS_MAX, kept so the port routes the same
@@ -866,20 +1193,29 @@ class TorchExecutor:
         self.groupby_mode = groupby
         self._device_cache: Dict[str, Tuple[int, DTable]] = {}
         self.n_syncs = 0
+        # per-query subquery memo: expr ids are only stable within one plan
+        self._subq_cache: Dict[int, ex.Expr] = {}
 
     # -- public --------------------------------------------------------------
 
     def execute_to_host(self, p: lp.Plan) -> Table:
         self.n_syncs = 0
+        self._subq_cache = {}
         return to_host(self.execute(p))
 
     def execute(self, p: lp.Plan) -> DTable:
-        m = getattr(self, "_exec_" + type(p).__name__.lower(), None)
+        node = type(p).__name__
+        m = getattr(self, "_exec_" + node.lower(), None)
         if m is None:
-            code = {"Window": "NDS209"}.get(type(p).__name__)
-            raise Unsupported(f"plan node {type(p).__name__} is not ported "
-                              f"yet", code=code)
-        return m(p)
+            code = {"Window": "NDS209"}.get(node)
+            raise Unsupported(f"plan node {node} is not ported yet",
+                              code=code, node=node)
+        try:
+            return m(p)
+        except Unsupported as u:
+            if u.node is None:
+                u.node = node
+            raise
 
     # -- sync points -----------------------------------------------------------
 
@@ -890,6 +1226,67 @@ class TorchExecutor:
         n = int(count)
         self.n_syncs += 1
         return max(n, 1), n
+
+    def _branch_bool(self, flag) -> bool:
+        """Host-sync a branch decision."""
+        self.n_syncs += 1
+        return bool(flag)
+
+    # -- subqueries ----------------------------------------------------------
+
+    def _resolve_subqueries(self, e: ex.Expr) -> ex.Expr:
+        """Replace each subquery in ``e`` by its result: a scalar
+        subquery by a literal, an IN subquery by an IN-list.  The
+        sub-plan runs eagerly and its result crosses to the host once
+        (one sync)."""
+        if isinstance(e, ex.SubqueryExpr):
+            hit = self._subq_cache.get(id(e))
+            if hit is not None:
+                return hit
+            t = to_host(self.execute(e.plan))
+            self.n_syncs += 1
+            col = t.columns[t.column_names[0]]
+            if e.kind == "scalar":
+                if t.num_rows == 0:
+                    out = ex.Literal(None, col.ctype)
+                else:
+                    vals = col.to_pylist()
+                    if len(vals) > 1:
+                        raise RuntimeError("scalar subquery returned >1 row")
+                    out = ex.Literal(vals[0], col.ctype)
+            elif e.kind == "in":
+                pyvals = col.to_pylist()
+                has_null = any(v is None for v in pyvals)
+                vals = tuple(v for v in pyvals if v is not None)
+                if e.negated and has_null:
+                    out = ex.Literal(False)
+                else:
+                    out = ex.InList(self._resolve_subqueries(e.operand),
+                                    vals, e.negated)
+            else:
+                raise Unsupported(f"subquery kind {e.kind}", code="NDS211")
+            self._subq_cache[id(e)] = out
+            return out
+        if isinstance(e, ex.BinOp):
+            return ex.BinOp(e.op, self._resolve_subqueries(e.left),
+                            self._resolve_subqueries(e.right))
+        if isinstance(e, ex.UnaryOp):
+            return ex.UnaryOp(e.op, self._resolve_subqueries(e.operand))
+        if isinstance(e, ex.Cast):
+            return ex.Cast(self._resolve_subqueries(e.operand), e.target)
+        if isinstance(e, ex.Func):
+            return ex.Func(e.name, tuple(self._resolve_subqueries(a)
+                                         for a in e.args))
+        if isinstance(e, ex.Case):
+            return ex.Case(
+                tuple((self._resolve_subqueries(c),
+                       self._resolve_subqueries(v)) for c, v in e.whens),
+                self._resolve_subqueries(e.default)
+                if e.default is not None else None)
+        if isinstance(e, ex.InList):
+            return ex.InList(self._resolve_subqueries(e.operand), e.values,
+                             e.negated)
+        return e
 
     # -- leaves --------------------------------------------------------------
 
@@ -908,7 +1305,8 @@ class TorchExecutor:
             cols = list(p.columns) or dt.column_names[:1]
             dt = dt.select(cols)
         if p.predicate is not None:
-            mask = JEval(dt).predicate(p.predicate)
+            pred = self._resolve_subqueries(p.predicate)
+            mask = JEval(dt).predicate(pred)
             dt = DTable(dt.columns, dt.alive & mask)
         return dt
 
@@ -923,7 +1321,8 @@ class TorchExecutor:
 
     def _exec_filter(self, p: lp.Filter) -> DTable:
         dt = self.execute(p.child)
-        mask = JEval(dt).predicate(p.condition)
+        cond = self._resolve_subqueries(p.condition)
+        mask = JEval(dt).predicate(cond)
         return DTable(dt.columns, dt.alive & mask)
 
     def _exec_project(self, p: lp.Project) -> DTable:
@@ -931,7 +1330,7 @@ class TorchExecutor:
         evl = JEval(dt)
         cols = {}
         for name, e in p.exprs:
-            cols[name] = evl.eval(e)
+            cols[name] = evl.eval(self._resolve_subqueries(e))
         return DTable(cols, dt.alive)
 
     def _exec_limit(self, p: lp.Limit) -> DTable:
@@ -943,12 +1342,16 @@ class TorchExecutor:
     def compact(self, dt: DTable) -> DTable:
         """Gather alive rows to the front (order-preserving); one sync
         point for the new capacity (the length of the nonzero list)."""
+        return self._compact_n(dt)[0]
+
+    def _compact_n(self, dt: DTable) -> Tuple[DTable, int]:
+        """:meth:`compact` and the number of alive rows it found."""
         idx = torch.nonzero(dt.alive).squeeze(1)
         cap, n_alive = self._capacity_for(idx.shape[0])
         if n_alive < cap:
             idx = torch.zeros(cap, dtype=idx.dtype, device=self.device)
         alive = _iota(cap, self.device) < n_alive
-        return DTable(_gather_cols(dt.columns, idx, alive), alive)
+        return DTable(_gather_cols(dt.columns, idx, alive), alive), n_alive
 
     # -- sort ----------------------------------------------------------------
 
@@ -986,7 +1389,8 @@ class TorchExecutor:
         for entry in p.keys:
             e, asc = entry[0], entry[1]
             nf = entry[2] if len(entry) > 2 else None
-            keys.append(self._order_key(evl, evl.eval(e), asc, nf))
+            keys.append(self._order_key(
+                evl, evl.eval(self._resolve_subqueries(e)), asc, nf))
         order = _lexsort_order(keys)
         return dt.gather(order, dt.alive[order])
 
@@ -1014,7 +1418,8 @@ class TorchExecutor:
     def _aggregate_once(self, dt: DTable, p: lp.Aggregate) -> DTable:
         evl = JEval(dt)
         cap = dt.capacity
-        key_cols = [(name, evl.eval(e)) for name, e in p.group_by]
+        key_cols = [(name, evl.eval(self._resolve_subqueries(e)))
+                    for name, e in p.group_by]
         use_kernel = False
         direct = None
         if key_cols and self.groupby_mode in ("auto", "kernel"):
@@ -1049,8 +1454,9 @@ class TorchExecutor:
             out_alive = torch.tensor([True, False], device=self.device)
             out_cols = {}
         for name, e in p.aggs:
-            out_cols[name] = self._eval_agg(dt, evl, e, gid, ngseg,
-                                            out_alive, use_kernel)
+            out_cols[name] = self._eval_agg(
+                dt, evl, self._resolve_subqueries(e), gid, ngseg, out_alive,
+                use_kernel)
         return DTable(out_cols, out_alive)
 
     def _direct_group_ids(self, key_cols, alive):
@@ -1218,20 +1624,21 @@ class TorchExecutor:
         if func == "count":
             counts = _segment_sum(valid.to(torch.int32), gid, ngseg)
             return DCol(counts.to(torch.int64), ones, INT64)
-        exact = c.ctype.kind in ("decimal", "int32", "int64")
-        if func in ("sum", "avg") and not exact:
-            raise Unsupported(f"{func} over {c.ctype.kind} is not ported "
-                              f"yet (compensated float sums)",
-                              code="NDS207")
         if func == "sum":
-            sums = _segment_sum(_sum_input(c.data, valid), gid, ngseg)
             got = _segment_sum(valid.to(torch.int32), gid, ngseg) > 0
+            sums = self._segment_sum_typed(
+                _sum_input(c.data, valid, c.ctype.kind), gid, ngseg,
+                c.ctype.kind)
             if c.ctype.kind == "decimal":
                 return DCol(sums, got, decimal(38, c.ctype.scale))
-            return DCol(sums, got, INT64)
+            if c.ctype.kind in ("int32", "int64"):
+                return DCol(sums, got, INT64)
+            return DCol(sums, got, FLOAT64)
         if func == "avg":
             cnts = _segment_sum(valid.to(torch.int32), gid, ngseg)
-            sums = _segment_sum(_sum_input(c.data, valid), gid, ngseg)
+            sums = self._segment_sum_typed(
+                _sum_input(c.data, valid, c.ctype.kind), gid, ngseg,
+                c.ctype.kind)
             data = sums.to(torch.float64) / torch.clamp(cnts, min=1)
             if c.ctype.kind == "decimal":
                 data = data / (10 ** c.ctype.scale)
@@ -1254,8 +1661,36 @@ class TorchExecutor:
             out.scatter_reduce_(0, gid.long(), vals, reduce)
             return DCol(out.to(c.data.dtype), got, c.ctype,
                         c.dictionary, c.bounds)
-        raise Unsupported(f"aggregate {func} is not ported yet",
-                          code="NDS207")
+        if func in ("stddev_samp", "var_samp", "stddev", "variance"):
+            # shifted two-pass moments: center by the group mean so
+            # E[x^2]-E[x]^2 cancellation cannot eat the variance when
+            # mean >> stddev; the (sum d)^2/n term corrects the mean's own
+            # rounding
+            x = evl.cast(c, FLOAT64).data
+            xv = x.masked_fill(~valid, 0.0)
+            cnt = _segment_sum(valid.to(torch.int32), gid, ngseg)
+            s1 = fp64.segment_sum_compensated(xv, gid, ngseg)
+            mean = s1 / torch.clamp(cnt, min=1)
+            d = torch.where(valid, x - mean[gid], 0.0)
+            d1, d2 = fp64.segment_sum_compensated2(d, d * d, gid, ngseg)
+            ok = cnt > 1
+            denom = torch.where(ok, cnt - 1, 1)
+            var = torch.clamp(
+                d2 - torch.where(cnt > 0, d1 * d1 / torch.clamp(cnt, min=1),
+                                 0.0), min=0.0) / denom
+            data = var if func in ("var_samp", "variance") else \
+                torch.sqrt(var)
+            return DCol(data, ok, FLOAT64)
+        raise Unsupported(f"aggregate {func}", code="NDS207")
+
+    @staticmethod
+    def _segment_sum_typed(vals, gid, ngseg: int, kind: str):
+        """int/decimal sums stay exact int64; float sums are native
+        float64 (jaxexec's compensated f32-pair scan, ndstpu_torch.engine.
+        fp64)."""
+        if kind in ("decimal", "int32", "int64"):
+            return _segment_sum(vals, gid, ngseg)
+        return fp64.segment_sum_compensated(vals, gid, ngseg)
 
     # -- join ----------------------------------------------------------------
 
@@ -1306,8 +1741,9 @@ class TorchExecutor:
         the final composite bound fits int32 the whole key build runs in
         int32."""
         levl, revl = JEval(lt), JEval(rt)
-        lcols = [levl.eval(le) for le, _ in keys]
-        rcols = [revl.eval(re_) for _, re_ in keys]
+        lcols = [levl.eval(self._resolve_subqueries(le)) for le, _ in keys]
+        rcols = [revl.eval(self._resolve_subqueries(re_))
+                 for _, re_ in keys]
         capl, capr = lt.capacity, rt.capacity
         rank_radix = capl + capr + 3
         specs = []
@@ -1400,7 +1836,7 @@ class TorchExecutor:
         return lkey, rkey, lvalid, rvalid, bound
 
     def _probe_counts(self, pkey: torch.Tensor, bkey: torch.Tensor,
-                      bound: int):
+                      bound: int, need_order: bool = True):
         """Per-probe-row (lo, counts) against the build side, plus the
         build-side stable key order: ``order[lo[i] .. lo[i]+counts[i]-1]``
         are the build rows matching probe row ``i``.
@@ -1415,7 +1851,7 @@ class TorchExecutor:
 
         Probe rows with key < 0 (sentinels) never match; build rows with
         key < 0 never enter the tables but DO occupy `order` slots (they
-        sort first).
+        sort first).  Without ``need_order``, ``order`` is None.
         """
         m = int(bkey.shape[0])
         n = int(pkey.shape[0])
@@ -1437,8 +1873,10 @@ class TorchExecutor:
             hit = pkey >= 0
             counts = torch.where(hit, cnt[pk], 0)
             lo = starts[pk].to(torch.int32)
-            okey = torch.where(bkey >= 0, bkey, -1).to(torch.int32)
-            order = torch.sort(okey, stable=True)[1]
+            order = None
+            if need_order:
+                okey = torch.where(bkey >= 0, bkey, -1).to(torch.int32)
+                order = torch.sort(okey, stable=True)[1]
             return lo, counts, order
         key = torch.cat([bkey, pkey])
         tag = (_iota(m + n, dev) >= m).to(torch.int32)
@@ -1462,6 +1900,8 @@ class TorchExecutor:
         counts[dest] = cnt_sorted
         lo, counts = lo[:n], counts[:n]
         counts = torch.where(pkey >= 0, counts, 0)
+        if not need_order:
+            return lo, counts, None
         bdest = torch.where(isb == 1, builds_le.to(torch.int64) - 1, m)
         order = torch.zeros(m + 1, dtype=torch.int64, device=dev)
         order[bdest] = sidx
@@ -1485,29 +1925,168 @@ class TorchExecutor:
         return torch.clamp(li, 0, cap - 1)
 
     def _exec_join(self, p: lp.Join) -> DTable:
-        if p.kind != "inner" or not p.keys:
-            raise Unsupported(f"{p.kind} join is not ported yet "
-                              f"(inner equi-joins only)", code="NDS210")
+        kind = p.kind
         lt = self.execute(p.left)
         rt = self.execute(p.right)
-        return self._equi_join(lt, rt, p.keys, p.extra)
+        extra = self._resolve_subqueries(p.extra) \
+            if p.extra is not None else None
+        if kind == "cross" or not p.keys:
+            if kind not in ("cross", "inner"):
+                raise Unsupported(f"non-equi {kind} join", code="NDS210")
+            return self._cross_join(lt, rt, extra)
+        if kind == "right":
+            out = self._equi_join(rt, lt, [(r, l) for l, r in p.keys],
+                                  "left", extra)
+            return out.select(list(lt.columns) + list(rt.columns))
+        if kind == "full":
+            return self._full_join(lt, rt, p.keys, extra)
+        if kind == "mark":
+            return self._equi_join(lt, rt, p.keys, kind, extra, mark=p.mark)
+        return self._equi_join(lt, rt, p.keys, kind, extra)
 
-    def _equi_join(self, lt: DTable, rt: DTable, keys,
-                   extra) -> DTable:
-        lkey, rkey, lvalid, rvalid, bound = self._join_keys(lt, rt, keys)
-        # null keys never match; dead rows already sentineled apart
-        lkey = lkey.masked_fill(~(lvalid & lt.alive), -1)
-        rkey = rkey.masked_fill(~(rvalid & rt.alive), -2)
-        lo, counts, order = self._probe_counts(lkey, rkey, bound)
-        counts = counts.masked_fill(~lt.alive, 0)
-        # inner expansion: one sync point for output capacity
-        out_cap, total = self._capacity_for(
-            torch.sum(counts, dtype=torch.int64))
-        out = self._expand(lt, rt, order, lo, counts, total, out_cap)
+    def _cross_join(self, lt: DTable, rt: DTable, extra) -> DTable:
+        ltc = self.compact(lt)
+        rtc = self.compact(rt)
+        nl = torch.sum(ltc.alive, dtype=torch.int64)
+        nr = torch.sum(rtc.alive, dtype=torch.int64)
+        out_cap, total = self._capacity_for(nl * nr)
+        pos = _iota(out_cap, self.device, torch.int64)
+        nr_safe = torch.clamp(nr, min=1)
+        li = torch.clamp(pos // nr_safe, max=ltc.capacity - 1)
+        ri = torch.clamp(pos % nr_safe, max=rtc.capacity - 1)
+        alive = pos < total
+        lcols = _gather_cols(ltc.columns, li, alive)
+        rcols = _gather_cols(rtc.columns, ri, alive)
+        out = DTable({**lcols, **rcols}, alive)
         if extra is not None:
             mask = JEval(out).predicate(extra)
             out = DTable(out.columns, out.alive & mask)
         return out
+
+    def _full_join(self, lt: DTable, rt: DTable, keys, extra) -> DTable:
+        left_part = self._equi_join(lt, rt, keys, "left", extra)
+        # right rows with no key match (residual predicate excluded, as in
+        # the reference interpreter's full-join path)
+        lkey, rkey, lvalid, rvalid, bound = self._join_keys(lt, rt, keys)
+        lkey = lkey.masked_fill(~(lvalid & lt.alive), -1)
+        rkey = rkey.masked_fill(~(rvalid & rt.alive), -2)
+        _, rcounts, _ = self._probe_counts(rkey, lkey, bound,
+                                           need_order=False)
+        runmatched = rt.alive & ~(rcounts > 0)
+        # bottom block: null left columns + unmatched right rows
+        bottom_cols: Dict[str, DCol] = {}
+        for n, c in lt.columns.items():
+            # null left columns sized to the bottom block's (right)
+            # capacity; bounds stay sound (filler rows are all invalid)
+            bottom_cols[n] = DCol(
+                torch.zeros(rt.capacity, dtype=c.data.dtype,
+                            device=self.device),
+                torch.zeros(rt.capacity, dtype=torch.bool,
+                            device=self.device), c.ctype, c.dictionary,
+                c.bounds)
+        for n, c in rt.columns.items():
+            bottom_cols[n] = DCol(c.data, c.valid & runmatched, c.ctype,
+                                  c.dictionary, c.bounds)
+        bottom = DTable(bottom_cols, runmatched)
+        return self._vconcat(left_part, bottom)
+
+    def _vconcat(self, lt: DTable, rt: DTable) -> DTable:
+        """Vertical concat with dictionary merge / numeric unification."""
+        cols: Dict[str, DCol] = {}
+        for n in lt.column_names:
+            lc, rc = lt.column(n), rt.column(n)
+            if lc.ctype.kind == "string":
+                merged = _merged_dict([lc, rc])
+                ld = _translate(lc, merged)
+                rd = _translate(rc, merged)
+                ld = torch.where(ld == -2, -1, ld)
+                rd = torch.where(rd == -2, -1, rd)
+                cols[n] = DCol(torch.cat([ld, rd]).to(torch.int32),
+                               torch.cat([lc.valid, rc.valid]),
+                               STRING, merged.astype(object))
+            else:
+                tgt = lc.ctype
+                if rc.ctype.kind != tgt.kind or \
+                        (tgt.kind == "decimal" and
+                         rc.ctype.scale != tgt.scale):
+                    tgt = ex.common_type(lc.ctype, rc.ctype)
+                    lc = JEval(lt).cast(lc, tgt)
+                    rc = JEval(rt).cast(rc, tgt)
+                dt = torch_dtype(tgt)
+                cols[n] = DCol(
+                    torch.cat([lc.data.to(dt), rc.data.to(dt)]),
+                    torch.cat([lc.valid, rc.valid]), tgt, None,
+                    _union_bounds(lc.bounds, rc.bounds))
+        alive = torch.cat([lt.alive, rt.alive])
+        return DTable(cols, alive)
+
+    def _residual_hits(self, lt: DTable, rt: DTable, order, lo, counts,
+                       extra) -> torch.Tensor:
+        """Per-left-row mask: does any key match survive the residual
+        predicate?  (shared by semi / anti / mark joins)"""
+        out_cap, total = self._capacity_for(
+            torch.sum(counts, dtype=torch.int64))
+        inner = self._expand(lt, rt, order, lo, counts, total, out_cap)
+        keep = JEval(inner).predicate(extra)
+        starts = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+        li_all = self._expand_li(counts, starts, out_cap)
+        return _segment_sum(keep.to(torch.int32), li_all,
+                            lt.capacity) > 0
+
+    def _equi_join(self, lt: DTable, rt: DTable, keys, kind,
+                   extra, mark: Optional[str] = None) -> DTable:
+        lkey, rkey, lvalid, rvalid, bound = self._join_keys(lt, rt, keys)
+
+        if kind == "nullaware_anti":
+            rt_has_null = self._branch_bool(torch.any(~rvalid & rt.alive))
+            rt_nonempty = self._branch_bool(torch.any(rt.alive))
+            if rt_has_null:
+                return DTable(lt.columns, torch.zeros_like(lt.alive))
+            kind = "anti"
+            if rt_nonempty:
+                lt = DTable(lt.columns, lt.alive & lvalid)
+
+        # null keys never match; dead rows already sentineled apart
+        lkey = lkey.masked_fill(~(lvalid & lt.alive), -1)
+        rkey = rkey.masked_fill(~(rvalid & rt.alive), -2)
+
+        need_order = kind in ("inner", "left") or extra is not None
+        lo, counts, order = self._probe_counts(lkey, rkey, bound,
+                                               need_order=need_order)
+        counts = counts.masked_fill(~lt.alive, 0)
+        matched = counts > 0
+
+        if kind == "mark":
+            # EXISTS under OR: left table + boolean mark column
+            if extra is not None:
+                matched = self._residual_hits(lt, rt, order, lo, counts,
+                                              extra)
+            cols = dict(lt.columns)
+            cols[mark] = DCol(matched & lt.alive, torch.ones_like(lt.alive),
+                              BOOL)
+            return DTable(cols, lt.alive)
+
+        if kind in ("semi", "anti"):
+            if extra is not None:
+                hits = self._residual_hits(lt, rt, order, lo, counts,
+                                           extra)
+                mask = hits if kind == "semi" else ~hits
+                return DTable(lt.columns, lt.alive & mask)
+            mask = matched if kind == "semi" else (~matched & lt.alive)
+            return DTable(lt.columns, lt.alive & mask)
+
+        if kind == "inner":
+            # inner expansion: one sync point for output capacity
+            out_cap, total = self._capacity_for(
+                torch.sum(counts, dtype=torch.int64))
+            out = self._expand(lt, rt, order, lo, counts, total, out_cap)
+            if extra is not None:
+                mask = JEval(out).predicate(extra)
+                out = DTable(out.columns, out.alive & mask)
+            return out
+        if kind == "left":
+            return self._left_join(lt, rt, order, lo, counts, extra)
+        raise Unsupported(f"join kind {kind}", code="NDS210")
 
     def _expand(self, lt: DTable, rt: DTable, order, lo, counts,
                 total: int, out_cap: int) -> DTable:
@@ -1521,3 +2100,39 @@ class TorchExecutor:
         lcols = _gather_cols(lt.columns, li, alive)
         rcols = _gather_cols(rt.columns, ri, alive)
         return DTable({**lcols, **rcols}, alive)
+
+    def _left_join(self, lt: DTable, rt: DTable, order, lo, counts,
+                   extra) -> DTable:
+        matched_cap, total = self._capacity_for(
+            torch.sum(counts, dtype=torch.int64))
+        inner = self._expand(lt, rt, order, lo, counts, total, matched_cap)
+        # left-row index feeding each inner output position
+        starts = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+        li_all = self._expand_li(counts, starts, matched_cap)
+        if extra is not None:
+            keep = JEval(inner).predicate(extra)
+            inner = DTable(inner.columns, keep)
+        # left rows that kept >=1 match after the residual predicate
+        hits = _segment_sum(inner.alive.to(torch.int32), li_all,
+                            lt.capacity)
+        unmatched_mask = lt.alive & (hits == 0)
+        inner_c, n_matched = self._compact_n(inner)
+        # the unmatched left rows, in order (nonzero syncs its length)
+        um_idx = torch.nonzero(unmatched_mask).squeeze(1)
+        out_cap, n_out = self._capacity_for(n_matched + um_idx.shape[0])
+        # out[pos] = matched[pos] for pos < n_matched,
+        #            unmatched-left[pos - n_matched] after (null right side)
+        pos = _iota(out_cap, self.device, torch.int64)
+        is_m = pos < n_matched
+        mi = torch.clamp(pos, 0, inner_c.capacity - 1)
+        um_rows = torch.zeros(out_cap, dtype=torch.int64, device=self.device)
+        um_rows[n_matched:n_out] = um_idx
+        out_alive = pos < n_out
+        cols = _select_cols(
+            {n: inner_c.column(n) for n in lt.column_names},
+            {n: lt.column(n) for n in lt.column_names},
+            mi, um_rows, is_m, out_alive)
+        cols.update(_gather_cols(
+            {n: inner_c.column(n) for n in rt.column_names},
+            mi, is_m & out_alive))
+        return DTable(cols, out_alive)

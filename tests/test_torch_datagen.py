@@ -2,8 +2,10 @@
 
 Row counts must equal the JAX package's C++ generator (``ndsgen -sizes``)
 at the spec's step scales; the distributions follow its ``gen_sale``,
-``gen_item`` and ``gen_date_dim`` models.  Counts and keys are exact;
-shares are checked within a few standard errors of the model's value."""
+``gen_return``, ``gen_item``, ``gen_date_dim``, ``gen_store``,
+``gen_reason``, ``gen_household_demographics`` and ``gen_time_dim``
+models.  Counts and keys are exact; shares are checked within four
+standard errors of the model's value."""
 
 import subprocess
 
@@ -31,6 +33,134 @@ def test_row_counts_match_ndsgen(sf):
     got = datagen.sizes(sf)
     for table in ("store_sales", "item", "date_dim"):
         assert got[table] == want[table], table
+
+
+_NEW_TABLES = ("store_returns", "store", "reason", "household_demographics",
+               "time_dim", "customer")
+
+
+@pytest.mark.parametrize("sf", [0.2, 1, 10, 100])
+@pytest.mark.parametrize("table", _NEW_TABLES)
+def test_store_channel_row_counts_match_ndsgen(sf, table, ndsgen_sizes):
+    assert datagen.sizes(sf)[table] == ndsgen_sizes(sf)[table]
+
+
+@pytest.fixture(scope="module")
+def ndsgen_sizes():
+    memo = {}
+
+    def sizes(sf):
+        if sf not in memo:
+            out = subprocess.run([str(check_build()), "-sizes", str(sf)],
+                                 capture_output=True, text=True,
+                                 check=True).stdout
+            memo[sf] = {ln.split("|")[0]: int(ln.split("|")[1])
+                        for ln in out.strip().splitlines()}
+        return memo[sf]
+    return sizes
+
+
+def _share_ok(share, p, n):
+    return abs(share - p) < 4 * np.sqrt(p * (1 - p) / n)
+
+
+def test_store_sales_keys_and_nulls(cat):
+    """gen_sale's ranges: uniform time of day, hdemo and store keys; Zipf
+    customers; 3% NULL customers and 2% NULL stores; three rows a
+    ticket; the cent arithmetic of sales, discount and net paid."""
+    n = datagen.sizes(0.2)
+    ss = cat.get("store_sales")
+    rows = ss.num_rows
+    col = ss.column
+    t = col("ss_sold_time_sk").data
+    assert int(t.min()) >= 0 and int(t.max()) <= 86399
+    h = col("ss_hdemo_sk").data
+    assert int(h.min()) >= 1 and int(h.max()) <= 7200
+    st = col("ss_store_sk")
+    assert int(st.data.min()) >= 1 and int(st.data.max()) <= n["store"]
+    assert _share_ok(1 - float(st.valid.double().mean()), 0.02, rows)
+    cu = col("ss_customer_sk")
+    assert int(cu.data.min()) >= 1 and int(cu.data.max()) <= n["customer"]
+    assert _share_ok(1 - float(cu.valid.double().mean()), 0.03, rows)
+    counts = torch.bincount(cu.data.long()).sort(descending=True).values
+    top = counts[: max(1, n["customer"] // 100)].sum()
+    assert float(top) / rows > 0.3                   # Zipf-skewed
+    tk = col("ss_ticket_number").data
+    assert tk.dtype == torch.int64
+    assert torch.equal(tk, torch.arange(rows) // 3 + 1)
+    q = col("ss_quantity").data
+    assert int(q.min()) >= 1 and int(q.max()) <= 100
+    sales = col("ss_sales_price").data
+    ext = col("ss_ext_sales_price").data
+    assert torch.equal(ext, q * sales)
+    assert int(sales.min()) >= 20 and int(sales.max()) <= 20000
+    disc = col("ss_ext_discount_amt").data
+    assert int(disc.min()) >= 0                      # list >= sales
+    paid = col("ss_net_paid").data
+    coupon = ext - paid
+    assert bool((coupon >= 0).all()) and bool((2 * coupon <= ext).all())
+    # 15% carry a coupon; a few of those draw a zero coupon
+    share = float((coupon > 0).double().mean())
+    assert 0.13 < share <= 0.15 + 4 * np.sqrt(0.15 * 0.85 / rows)
+
+
+def test_returns_reference_their_sales(cat):
+    """Every (sr_item_sk, sr_ticket_number) is a store_sales row, the
+    parent return_parent_row names; the return quantity is at most that
+    sale's quantity; reasons are uniform over the reason table."""
+    ss, sr = cat.get("store_sales"), cat.get("store_returns")
+    parent = datagen.return_parent_rows(sr.num_rows, ss.num_rows, "cpu")
+    assert int(parent.max()) < ss.num_rows
+    item = sr.column("sr_item_sk").data
+    ticket = sr.column("sr_ticket_number").data
+    assert torch.equal(item, ss.column("ss_item_sk").data[parent])
+    assert torch.equal(ticket, ss.column("ss_ticket_number").data[parent])
+    pairs = set(zip(ss.column("ss_item_sk").data.tolist(),
+                    ss.column("ss_ticket_number").data.tolist()))
+    assert set(zip(item.tolist(), ticket.tolist())) <= pairs
+    rq = sr.column("sr_return_quantity").data
+    assert int(rq.min()) >= 1
+    assert bool((rq <= ss.column("ss_quantity").data[parent]).all())
+    reason = sr.column("sr_reason_sk").data
+    n_reason = cat.get("reason").num_rows
+    assert int(reason.min()) >= 1 and int(reason.max()) <= n_reason
+    assert torch.bincount(reason.long()).shape[0] == n_reason + 1
+
+
+def test_dimension_models(cat):
+    """gen_store, gen_reason, gen_household_demographics, gen_time_dim and
+    the date_dim day names."""
+    store = cat.get("store")
+    name = store.column("s_store_name")
+    assert all(str(v).endswith(" Store") for v in name.dictionary)
+    ids = store.column("s_store_id")
+    assert list(ids.dictionary[ids.data.numpy()]) == [
+        datagen.bkey(i) for i in range(1, store.num_rows + 1)]
+    assert datagen.bkey(1) == "AAAAAAAAAAAAAAAB"
+    assert set(store.column("s_gmt_offset").data.tolist()) <= {-500, -600}
+    # SF 100's 55 reasons: the descriptions cycle through the 35 entries
+    desc = datagen._reason(55, "cpu").column("r_reason_desc")
+    got = desc.dictionary[desc.data.numpy()]
+    assert got[0] == "Package was damaged"
+    assert got[34] == "reason 35" and got[35] == "Package was damaged"
+    hd = cat.get("household_demographics")
+    dep = hd.column("hd_dep_count").data
+    assert sorted(set(dep.tolist())) == list(range(10))
+    assert int((dep == 3).sum()) == 720
+    assert set(hd.column("hd_vehicle_count").data.tolist()) == set(range(6))
+    td = cat.get("time_dim")
+    sk = td.column("t_time_sk").data.long()
+    assert torch.equal(sk, torch.arange(86400))
+    assert torch.equal(td.column("t_hour").data * 3600 +
+                       td.column("t_minute").data * 60 +
+                       td.column("t_second").data, sk)
+    dd = cat.get("date_dim")
+    day = dd.column("d_day_name")
+    days = dd.column("d_date_sk").data.numpy().astype(np.int64) - \
+        _JD_EPOCH_1970
+    want = [["Thursday", "Friday", "Saturday", "Sunday", "Monday",
+             "Tuesday", "Wednesday"][d % 7] for d in days]
+    assert list(day.dictionary[day.data.numpy()]) == want
 
 
 def test_generated_row_counts(cat):
@@ -118,7 +248,12 @@ def test_same_seed_same_data():
     b = datagen.generate(0.01, seed=5, device="cpu")
     c = datagen.generate(0.01, seed=6, device="cpu")
     col = "ss_ext_sales_price"
-    assert torch.equal(a.get("store_sales").column(col).data,
-                       b.get("store_sales").column(col).data)
+    for table, cols in datagen.COLUMNS.items():
+        for name in cols:
+            x, y = a.get(table).column(name), b.get(table).column(name)
+            assert torch.equal(x.data, y.data), (table, name)
+            assert (x.valid is None) == (y.valid is None)
+            if x.valid is not None:
+                assert torch.equal(x.valid, y.valid)
     assert not torch.equal(a.get("store_sales").column(col).data,
                            c.get("store_sales").column(col).data)

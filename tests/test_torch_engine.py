@@ -225,15 +225,20 @@ def test_round_trip_every_kind(catalogs):
 
 def test_unsupported_raises_with_code(torch_sess):
     """No numpy fallback: a node outside the port raises Unsupported with
-    jaxexec's diagnostic code."""
+    jaxexec's diagnostic code where it has one, and names the plan node
+    that refused."""
     with pytest.raises(torchexec.Unsupported) as e:
-        torch_sess.sql("select sr_item_sk, ss_ticket_number from "
-                       "store_returns left join store_sales on "
-                       "sr_item_sk = ss_item_sk")
-    assert e.value.code == "NDS210"
+        torch_sess.sql("select i_category, rank() over (partition by "
+                       "i_category order by i_item_sk) r from item")
+    assert (e.value.code, e.value.node) == ("NDS209", "Window")
     with pytest.raises(torchexec.Unsupported) as e:
-        torch_sess.sql("select upper(i_brand) from item")
-    assert e.value.code == "NDS205"
+        torch_sess.sql("select i_category, i_class, count(*) c from item "
+                       "group by rollup(i_category, i_class)")
+    assert (e.value.code, e.value.node) == ("NDS214", "Aggregate")
+    with pytest.raises(torchexec.Unsupported) as e:
+        torch_sess.sql("select i_item_sk from item union "
+                       "select ss_item_sk from store_sales")
+    assert (e.value.code, e.value.node) == (None, "SetOp")
 
 
 def test_cuda_is_the_default_device(catalogs, monkeypatch):
