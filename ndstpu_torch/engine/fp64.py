@@ -4,9 +4,10 @@ The TPU has no float64 ALU, so the JAX package carries each float sum as
 an unevaluated pair of float32s through a segmented scan over rows sorted
 by segment.  Hopper (and the CPU) add float64 natively, so each sum here
 is one float64 ``index_add_``, which needs no sort order and no scan.
-The two functions keep df64's signatures; ``order`` and ``levels`` were
-the scan's inputs and are accepted and unused, so the engine's call sites
-read as jaxexec's.
+The two functions keep df64's signatures.  ``order`` and ``levels`` were
+the scan's inputs; nothing here needs them and no caller passes them.
+They go once the port's compile cache (``ROADMAP.md`` §A.4) settles how
+its plans call these sums.
 """
 
 from __future__ import annotations

@@ -1044,13 +1044,16 @@ def _minmax_vals(data: torch.Tensor, valid: torch.Tensor, kind: str,
     return data.masked_fill(~valid, info.max if is_min else info.min)
 
 
-def _sum_input(data: torch.Tensor, valid: torch.Tensor,
-               kind: str) -> torch.Tensor:
-    """Summation input: decimal/int sums stay exact int64, float sums are
-    float64."""
+def _typed_sum(data: torch.Tensor, valid: torch.Tensor, kind: str,
+               gid: torch.Tensor, ngseg: int) -> torch.Tensor:
+    """Per-segment sums of the valid rows: decimal/int sums stay exact
+    int64, float sums are native float64 (:mod:`ndstpu_torch.engine.fp64`,
+    jaxexec's compensated f32-pair scan)."""
     if kind in ("decimal", "int32", "int64"):
-        return data.to(torch.int64).masked_fill(~valid, 0)
-    return data.to(torch.float64).masked_fill(~valid, 0.0)
+        return _segment_sum(data.to(torch.int64).masked_fill(~valid, 0),
+                            gid, ngseg)
+    return fp64.segment_sum_compensated(
+        data.to(torch.float64).masked_fill(~valid, 0.0), gid, ngseg)
 
 
 def _key_i64(c: DCol, alive: torch.Tensor,
@@ -1626,9 +1629,7 @@ class TorchExecutor:
             return DCol(counts.to(torch.int64), ones, INT64)
         if func == "sum":
             got = _segment_sum(valid.to(torch.int32), gid, ngseg) > 0
-            sums = self._segment_sum_typed(
-                _sum_input(c.data, valid, c.ctype.kind), gid, ngseg,
-                c.ctype.kind)
+            sums = _typed_sum(c.data, valid, c.ctype.kind, gid, ngseg)
             if c.ctype.kind == "decimal":
                 return DCol(sums, got, decimal(38, c.ctype.scale))
             if c.ctype.kind in ("int32", "int64"):
@@ -1636,9 +1637,7 @@ class TorchExecutor:
             return DCol(sums, got, FLOAT64)
         if func == "avg":
             cnts = _segment_sum(valid.to(torch.int32), gid, ngseg)
-            sums = self._segment_sum_typed(
-                _sum_input(c.data, valid, c.ctype.kind), gid, ngseg,
-                c.ctype.kind)
+            sums = _typed_sum(c.data, valid, c.ctype.kind, gid, ngseg)
             data = sums.to(torch.float64) / torch.clamp(cnts, min=1)
             if c.ctype.kind == "decimal":
                 data = data / (10 ** c.ctype.scale)
@@ -1682,15 +1681,6 @@ class TorchExecutor:
                 torch.sqrt(var)
             return DCol(data, ok, FLOAT64)
         raise Unsupported(f"aggregate {func}", code="NDS207")
-
-    @staticmethod
-    def _segment_sum_typed(vals, gid, ngseg: int, kind: str):
-        """int/decimal sums stay exact int64; float sums are native
-        float64 (jaxexec's compensated f32-pair scan, ndstpu_torch.engine.
-        fp64)."""
-        if kind in ("decimal", "int32", "int64"):
-            return _segment_sum(vals, gid, ngseg)
-        return fp64.segment_sum_compensated(vals, gid, ngseg)
 
     # -- join ----------------------------------------------------------------
 

@@ -32,10 +32,11 @@ import torch
 from ndstpu_torch.engine.torchexec import resolve_device
 from ndstpu_torch.ops import segsum
 
+REPS = 20  # timed calls per variant, as in scripts/pallas_bench.py
 
-def _time_ms(fn: Callable[[], object], device: torch.device,
-             reps: int) -> float:
-    """Mean milliseconds of one call of ``fn`` over ``reps`` calls, after
+
+def _time_ms(fn: Callable[[], object], device: torch.device) -> float:
+    """Mean milliseconds of one call of ``fn`` over ``REPS`` calls, after
     one warm-up call."""
     fn()
     if device.type == "cuda":
@@ -43,15 +44,15 @@ def _time_ms(fn: Callable[[], object], device: torch.device,
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
+        for _ in range(REPS):
             fn()
         stop.record()
         torch.cuda.synchronize(device)
-        return start.elapsed_time(stop) / reps
+        return start.elapsed_time(stop) / REPS
     t0 = time.perf_counter()
-    for _ in range(reps):
+    for _ in range(REPS):
         fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
+    return (time.perf_counter() - t0) * 1e3 / REPS
 
 
 def inputs(rows: int, segs: int, device) -> Dict[str, torch.Tensor]:
@@ -77,8 +78,8 @@ def library_i64(vals, gid, mask, segs: int) -> torch.Tensor:
     return out.index_add_(0, gid, torch.where(mask, vals, 0))
 
 
-def run(rows: int = 4_000_000, segs: int = 1024, device=None,
-        reps: int = 20) -> Dict[str, object]:
+def run(rows: int = 4_000_000, segs: int = 1024,
+        device=None) -> Dict[str, object]:
     """Check and time the four variants; returns the JSON record."""
     dev = resolve_device(device)
     x = inputs(rows, segs, dev)
@@ -91,14 +92,12 @@ def run(rows: int = 4_000_000, segs: int = 1024, device=None,
     got_d = segsum.segment_sum_decimal(vd, g, m, segs)[0]
     np.testing.assert_array_equal(got_d.cpu().numpy(), want_d.cpu().numpy())
     times = {
-        "library_f32_ms": _time_ms(lambda: library_f32(v, g, m, segs), dev,
-                                   reps),
+        "library_f32_ms": _time_ms(lambda: library_f32(v, g, m, segs), dev),
         "kernel_f32_ms": _time_ms(
-            lambda: segsum.segment_sum_f32(v, g, m, segs), dev, reps),
-        "library_i64_ms": _time_ms(lambda: library_i64(vd, g, m, segs), dev,
-                                   reps),
+            lambda: segsum.segment_sum_f32(v, g, m, segs), dev),
+        "library_i64_ms": _time_ms(lambda: library_i64(vd, g, m, segs), dev),
         "kernel_i64_ms": _time_ms(
-            lambda: segsum.segment_sum_decimal(vd, g, m, segs), dev, reps),
+            lambda: segsum.segment_sum_decimal(vd, g, m, segs), dev),
     }
     return {"rows": rows, "segs": segs, "device": str(dev),
             "device_name": torch.cuda.get_device_name(dev)
@@ -113,9 +112,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ap.add_argument("segments", nargs="?", type=int, default=1024)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
-    ap.add_argument("--reps", type=int, default=20)
     a = ap.parse_args(argv)
-    rec = run(a.rows, a.segments, a.device, a.reps)
+    rec = run(a.rows, a.segments, a.device)
     print(json.dumps(rec), flush=True)
     return rec
 

@@ -1,10 +1,9 @@
 """Where the time of the port's queries goes, on one CUDA card.
 
     python -m ndstpu_torch.profile [--scale SF] [--seed N] [--out DIR]
-                                   [--queries family|store|all]
 
 Generates the warehouse on the card (as ``chip_smoke.py`` does), runs each
-query of :mod:`ndstpu_torch.queries` once to warm up, then once under
+of the eight queries of :mod:`ndstpu_torch.queries` once to warm up, then once under
 ``torch.profiler`` (CPU and CUDA activities).  Prints one JSON line per
 query: wall ms, summed device ms, the device's idle share of the wall
 time, host syncs, and the top operators and kernels by device time;
@@ -61,14 +60,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--out", default=str(_ROOT / "build" / "profile"))
     ap.add_argument("--top", type=int, default=10)
-    ap.add_argument("--queries", choices=("family", "store", "all"),
-                    default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ndstpu_torch.profile: no CUDA device", file=sys.stderr)
         return 2
-    queries = {"family": QUERIES, "store": STORE_QUERIES,
-               "all": {**QUERIES, **STORE_QUERIES}}[args.queries]
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     card = subprocess.run(
@@ -77,7 +72,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip()
     cat = datagen.generate(args.scale, args.seed, "cuda")
     sess = Session(cat, device="cuda")
-    for q, sql in queries.items():
+    for q, sql in {**QUERIES, **STORE_QUERIES}.items():
         sess.sql(sql)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,

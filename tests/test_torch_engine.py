@@ -23,6 +23,7 @@ from ndstpu_torch import carry
 from ndstpu_torch.engine import columnar as tcolumnar, torchexec
 from ndstpu_torch.engine.session import Session
 from ndstpu_torch.ops import segsum
+from ndstpu_torch.queries import STORE_QUERIES
 # the JAX engine's own differential rule (row order, NULLs, float epsilon)
 from test_jaxexec import assert_tables_match
 
@@ -133,6 +134,25 @@ def test_q42_reaches_segment_sum(torch_sess, monkeypatch):
     for sql in _render("query42"):
         torch_sess.sql(sql)
     assert calls and segsum.LAUNCHES == launches
+
+
+def test_q88_cross_join_nonempty(jax_sess, torch_sess):
+    """q88's cross join of four aggregated 4-way joins on non-zero
+    counts: the template's store name ('ese') names no generated store,
+    so the analog takes the store with the most sales and widens the
+    dependant count."""
+    busiest = jax_sess.sql(
+        "select s_store_name, count(*) c from store_sales, store "
+        "where ss_store_sk = s_store_sk group by s_store_name "
+        "order by c desc, s_store_name limit 1")
+    name = busiest.column("s_store_name").to_pylist()[0]
+    sql = STORE_QUERIES["q88"]
+    assert sql.count("'ese'") == 4 and sql.count("hd_dep_count = 3") == 4
+    sql = sql.replace("'ese'", f"'{name}'").replace(
+        "hd_dep_count = 3", "hd_dep_count <= 5")
+    out = _both(jax_sess, torch_sess, sql)
+    counts = out.to_rows()
+    assert len(counts) == 1 and min(counts[0]) > 0, counts
 
 
 def test_filter_project(jax_sess, torch_sess):
