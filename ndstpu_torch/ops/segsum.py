@@ -13,6 +13,11 @@ On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs
 its ``*_plain`` version, the same function in plain PyTorch.  There is no
 fallback from one to the other.
 
+A call on the card costs one output allocation, one zeroing and one
+kernel launch through a ctypes binding made once; its launch comes from
+:func:`_plan_decimal` or :func:`_plan_f32` (pure functions of the row
+count, the segment count and the card's SMs), which the CPU tests check.
+
 ``segment_sum_decimal``'s contract (bit-exact with the TPU function):
 
 * masked-out rows and rows whose gid is outside ``[0, num_segments)`` add
@@ -33,7 +38,8 @@ it agrees with the plain version within a tolerance, not bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -67,47 +73,188 @@ def _to_kernel(name: str, vals, gid, mask, num_segments: int,
                vals_dtype: torch.dtype) -> bool:
     """Check a wrapper's inputs: True when they go to the CUDA kernel,
     False when they lie on the CPU (the plain version)."""
-    if vals.dtype != vals_dtype or gid.dtype != torch.int32 or \
-            mask.dtype != torch.bool:
+    if vals.dtype is not vals_dtype or gid.dtype is not torch.int32 or \
+            mask.dtype is not torch.bool:
         raise TypeError(
             f"{name} takes {vals_dtype} vals, int32 gid and bool mask, got "
             f"{vals.dtype}, {gid.dtype}, {mask.dtype}")
-    if vals.dim() != 1 or vals.shape != gid.shape or \
-            vals.shape != mask.shape:
+    shape = vals.shape
+    if len(shape) != 1 or gid.shape != shape or mask.shape != shape:
         raise ValueError(
             f"{name} takes three 1-D tensors of one length, got "
             f"{tuple(vals.shape)}, {tuple(gid.shape)}, {tuple(mask.shape)}")
-    if not (vals.device == gid.device == mask.device):
+    dev = vals.device
+    if gid.device != dev or mask.device != dev:
         raise ValueError(f"{name}: tensors on different devices")
     if not 0 < num_segments < 2 ** 31:
         raise ValueError(f"num_segments out of range: {num_segments}")
-    if vals.device.type == "cpu":
+    if dev.type == "cpu":
         return False
-    if vals.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {vals.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {dev}")
     if not (vals.is_contiguous() and gid.is_contiguous()
             and mask.is_contiguous()):
         raise ValueError(f"{name}: tensors must be contiguous")
     return True
 
 
-def _launch(kernel: str, inputs, num_segments: int, outputs) -> None:
-    """Call ``csrc/<kernel>.cu``'s ``<kernel>_launch(inputs..., n,
-    num_segments, outputs..., stream)`` on the inputs' current stream;
-    raises on a CUDA error."""
-    from ndstpu_torch.ops import build
-    fn = getattr(build.load(kernel), f"{kernel}_launch")
-    ptr = ctypes.c_void_p
-    fn.argtypes = [ptr] * len(inputs) + [ctypes.c_longlong, ctypes.c_int] + \
-        [ptr] * (len(outputs) + 1)
-    fn.restype = ctypes.c_int
-    dev = inputs[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(t.data_ptr() for t in inputs), inputs[0].shape[0],
-                 num_segments, *(t.data_ptr() for t in outputs), stream)
+class Plan(NamedTuple):
+    """How one call runs: the kernel's ``regime``, warp-aggregated atomics
+    (``agg``), the launch's ``grid``, ``block`` and ``cluster`` sizes and
+    its dynamic shared-memory bytes (for the f32 kernel, ``smem // (4 *
+    s)`` copies of its histogram).  ``grid == 0`` launches nothing (no
+    rows)."""
+    regime: int
+    agg: int
+    grid: int
+    block: int
+    cluster: int
+    smem: int
+
+
+# warp aggregation of both kernels: none, on every row slot, or on all
+# four slots of a step when its first slot shows a hot segment
+AGG_NONE, AGG_ALL, AGG_SAMPLED = 0, 1, 2
+# regimes of csrc/segsum_decimal.cu
+DEC_GLOBAL, DEC_SMEM, DEC_CLUSTER = 0, 1, 2
+# regimes of csrc/segsum_f32.cu
+F32_GLOBAL, F32_SMEM, F32_SCRATCH = 0, 1, 2
+
+SMEM_BLOCK = 232448               # shared memory a block can use on sm_90
+SMEM_SM = 233472                  # shared memory of one SM (228 KB)
+SMEM_DYN_MAX = SMEM_BLOCK - 1024  # what the kernels ask for, at most
+# the decimal kernel privatises its histogram in shared memory from this
+# many rows a segment on (below, warp-aggregated global atomics)
+DEC_SMEM_ROWS_PER_SEG = 16
+# the f32 kernel's histograms in shared memory from this many rows a
+# segment on (below, global atomics)
+F32_SMEM_ROWS_PER_SEG = 16
+F32_CLUSTER = 2                   # CTAs that fold their histograms together
+
+_NO_KERNEL = Plan(0, 0, 0, 0, 1, 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_decimal(n: int, s: int, sms: int) -> Plan:
+    """The decimal kernel's launch for ``n`` rows over ``s`` segments on a
+    card of ``sms`` SMs."""
+    if n == 0:
+        return _NO_KERNEL
+    if n < DEC_SMEM_ROWS_PER_SEG * s or 12 * -(-s // 2) > SMEM_DYN_MAX:
+        return _decimal_plan(DEC_GLOBAL, AGG_SAMPLED, n, s, sms)
+    if 12 * s <= SMEM_DYN_MAX:
+        return _decimal_plan(DEC_SMEM, AGG_SAMPLED, n, s, sms)
+    return _decimal_plan(DEC_CLUSTER, AGG_SAMPLED, n, s, sms)
+
+
+def _decimal_plan(regime: int, agg: int, n: int, s: int, sms: int) -> Plan:
+    """The decimal kernel's launch in ``regime`` (``n > 0``): global
+    atomics fill the card (8 blocks of 256 an SM), histograms take one
+    block of 1024 an SM, or one CTA of a cluster of 2 each."""
+    vecs = -(-n // 4)
+    if regime == DEC_GLOBAL:
+        return Plan(regime, agg, min(-(-vecs // 256), sms * 8), 256, 1, 0)
+    grid = min(sms, -(-vecs // 1024))
+    if regime == DEC_SMEM:
+        return Plan(regime, agg, grid, 1024, 1, 12 * s)
+    return Plan(regime, agg, 2 * max(1, grid // 2), 1024, 2, 12 * -(-s // 2))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_f32(n: int, s: int, sms: int) -> Plan:
+    """The f32 kernel's launch for ``n`` rows over ``s`` segments on a card
+    of ``sms`` SMs."""
+    if n == 0:
+        return _NO_KERNEL
+    if n < F32_SMEM_ROWS_PER_SEG * s or 4 * s > SMEM_DYN_MAX:
+        return _f32_plan(F32_GLOBAL, AGG_ALL, n, s, sms)
+    return _f32_plan(F32_SMEM, AGG_NONE, n, s, sms)
+
+
+def _f32_plan(regime: int, agg: int, n: int, s: int, sms: int,
+              cluster: int = F32_CLUSTER, reps: int = 32) -> Plan:
+    """The f32 kernel's launch in ``regime`` (``n > 0``): global atomics
+    fill the card (8 blocks of 256 an SM); histograms take blocks of 1024,
+    two an SM where two fit, each with as many copies of its histogram as
+    fit, up to ``reps`` (one a warp), folded by clusters of up to
+    ``cluster``."""
+    vecs = -(-n // 4)
+    if regime == F32_GLOBAL:
+        return Plan(regime, agg, min(-(-vecs // 256), sms * 8), 256, 1, 0)
+    per_sm = 2 if 2 * (4 * s + 1024) <= SMEM_SM else 1
+    copies = max(1, min(reps, (SMEM_SM // per_sm - 1024) // (4 * s),
+                        SMEM_DYN_MAX // (4 * s)))
+    grid = min(sms * per_sm, -(-vecs // 1024))
+    if regime == F32_SCRATCH:
+        return Plan(regime, agg, grid, 1024, 1, 4 * s * copies)
+    cluster = min(cluster, 1 << (grid.bit_length() - 1))
+    return Plan(regime, agg, grid - grid % cluster, 1024, cluster,
+                4 * s * copies)
+
+
+class _CPlan(ctypes.Structure):
+    """:class:`Plan` as the C launchers take it."""
+    _fields_ = [(f, ctypes.c_int) for f in Plan._fields]
+
+
+_PTR = ctypes.c_void_p
+_ARGTYPES = {
+    # vals, gid, mask, n, s, out, aux or scratch, plan, stream
+    name: [_PTR] * 3 + [ctypes.c_longlong, ctypes.c_int] + [_PTR] * 4
+    for name in ("segsum_decimal", "segsum_f32")}
+_FNS = {}       # kernel -> its bound ctypes launcher
+_SMS = {}       # device index -> SM count
+_CPLANS = {}    # Plan -> its _CPlan, kept alive for the launchers
+# (device index, stream) -> int64 [2]: the decimal kernel's out-of-range
+# flag and block tickets on that stream, zero between calls (the kernel's
+# last block resets them)
+_AUX = {}
+
+
+def _sms(dev: torch.device) -> int:
+    sms = _SMS.get(dev.index)
+    if sms is None:
+        sms = _SMS[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms
+
+
+def _call(kernel: str, stream: int, *args, plan: Plan) -> None:
+    """Call ``csrc/<kernel>.cu``'s ``<kernel>_launch(*args, plan, stream)``
+    (built and bound on first use); raises on a CUDA error."""
+    fn = _FNS.get(kernel)
+    if fn is None:
+        from ndstpu_torch.ops import build
+        fn = getattr(build.load(kernel), f"{kernel}_launch")
+        fn.argtypes = _ARGTYPES[kernel]
+        fn.restype = ctypes.c_int
+        _FNS[kernel] = fn
+    cplan = _CPLANS.get(plan)
+    if cplan is None:
+        cplan = _CPLANS[plan] = _CPlan(*plan)
+    err = fn(*args, ctypes.addressof(cplan), stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+
+
+def _decimal(vals, gid, mask, num_segments: int, plan: Plan
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call of the decimal kernel with ``plan``; the sums and counts
+    are the rows of one zeroed int64 buffer."""
+    dev = vals.device
+    if dev.index != torch._C._cuda_getDevice():
+        with torch.cuda.device(dev):
+            return _decimal(vals, gid, mask, num_segments, plan)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    aux = _AUX.get((dev.index, stream))
+    if aux is None:
+        aux = _AUX[dev.index, stream] = torch.zeros(2, dtype=torch.int64,
+                                                    device=dev)
+    buf = torch.empty((2, num_segments), dtype=torch.int64, device=dev)
+    _call("segsum_decimal", stream, vals.data_ptr(), gid.data_ptr(),
+          mask.data_ptr(), vals.shape[0], num_segments, buf.data_ptr(),
+          aux.data_ptr(), plan=plan)
+    return buf[0], buf[1]
 
 
 def segment_sum_decimal(vals: torch.Tensor, gid: torch.Tensor,
@@ -120,14 +267,11 @@ def segment_sum_decimal(vals: torch.Tensor, gid: torch.Tensor,
     if not _to_kernel("segment_sum_decimal", vals, gid, mask, num_segments,
                       torch.int64):
         return segment_sum_decimal_plain(vals, gid, mask, num_segments)
-    dev = vals.device
-    sums = torch.zeros(num_segments, dtype=torch.int64, device=dev)
-    counts = torch.zeros(num_segments, dtype=torch.int64, device=dev)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    _launch("segsum_decimal", (vals, gid, mask), num_segments,
-            (sums, counts, flag))
-    LAUNCHES += 1
-    return sums, counts
+    plan = _plan_decimal(vals.shape[0], num_segments, _sms(vals.device))
+    out = _decimal(vals, gid, mask, num_segments, plan)
+    if plan.grid:
+        LAUNCHES += 1
+    return out
 
 
 def segment_sum_f32_plain(vals: torch.Tensor, gid: torch.Tensor,
@@ -152,7 +296,25 @@ def segment_sum_f32(vals: torch.Tensor, gid: torch.Tensor,
     if not _to_kernel("segment_sum_f32", vals, gid, mask, num_segments,
                       torch.float32):
         return segment_sum_f32_plain(vals, gid, mask, num_segments)
-    out = torch.zeros(num_segments, dtype=torch.float32, device=vals.device)
-    _launch("segsum_f32", (vals, gid, mask), num_segments, (out,))
-    LAUNCHES_F32 += 1
+    plan = _plan_f32(vals.shape[0], num_segments, _sms(vals.device))
+    out = _f32(vals, gid, mask, num_segments, plan)
+    if plan.grid:
+        LAUNCHES_F32 += 1
+    return out
+
+
+def _f32(vals, gid, mask, num_segments: int, plan: Plan) -> torch.Tensor:
+    """One call of the f32 kernel with ``plan``."""
+    s = num_segments
+    dev = vals.device
+    if dev.index != torch._C._cuda_getDevice():
+        with torch.cuda.device(dev):
+            return _f32(vals, gid, mask, num_segments, plan)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    out = torch.empty(s, dtype=torch.float32, device=dev)
+    scratch = torch.empty(plan.grid * s, dtype=torch.float32, device=dev) \
+        if plan.regime == F32_SCRATCH and plan.grid else None
+    _call("segsum_f32", stream, vals.data_ptr(), gid.data_ptr(),
+          mask.data_ptr(), vals.shape[0], s, out.data_ptr(),
+          None if scratch is None else scratch.data_ptr(), plan=plan)
     return out

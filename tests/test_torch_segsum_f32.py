@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from ndstpu.ops import segsum as jseg
 from ndstpu_torch.ops import bench
 from ndstpu_torch.ops import segsum as tseg
+from test_torch_segsum import zipf_gid
 
 
 def _case(kind, n, s, seed=5):
@@ -35,23 +36,41 @@ def _case(kind, n, s, seed=5):
         mask[:] = False
     elif kind == "gid_out_of_range":
         gid = rng.randint(-5, s + 5, n).astype(np.int32)
+    elif kind == "zipf":
+        gid = zipf_gid(rng, n, s)
+    elif kind == "one_segment":
+        gid[:] = 0
     return vals, gid, mask
 
 
 _CASES = [("random", 1000, 7), ("random", 4096, 300), ("random", 513, 1),
           ("all_masked", 512, 9), ("gid_out_of_range", 2048, 37),
-          ("random", 100, 1000)]     # num_segments above the row count
+          ("random", 100, 1000),     # num_segments above the row count
+          # the cases the kernel's regimes make important: Zipf-hot
+          # segments at the engine's 32,768-segment gate, every row in one
+          # segment, a ragged tail (n % 4 != 0), views at an odd storage
+          # offset
+          ("zipf", 4096, 32768), ("one_segment", 4099, 1),
+          ("random", 4095, 37), ("offset_view", 4097, 37)]
+# Pallas tiling for the interpret run (default 256 rows x 128 segments)
+_BLOCKS = {32768: (1024, 8192)}
 
 
 @pytest.mark.parametrize("kind,n,s", _CASES)
 def test_plain_matches_pallas_interpret(kind, n, s):
     vals, gid, mask = _case(kind, n, s)
+    tv, tg, tm = (torch.from_numpy(x) for x in (vals, gid, mask))
+    if kind == "offset_view":
+        # contiguous views at storage offset 1, as the engine may pass
+        vals, gid, mask = vals[1:], gid[1:], mask[1:]
+        tv, tg, tm = tv[1:], tg[1:], tm[1:]
+        assert tv.storage_offset() == 1 and tv.is_contiguous()
+    block_rows, block_segs = _BLOCKS.get(s, (256, 128))
     want = np.asarray(jseg.segment_sum_f32(
         jnp.asarray(vals), jnp.asarray(gid), jnp.asarray(mask), s,
-        block_rows=256, block_segs=128, interpret=True))
+        block_rows=block_rows, block_segs=block_segs, interpret=True))
     launches = tseg.LAUNCHES_F32
-    got = tseg.segment_sum_f32(torch.from_numpy(vals), torch.from_numpy(gid),
-                               torch.from_numpy(mask), s)
+    got = tseg.segment_sum_f32(tv, tg, tm, s)
     assert tseg.LAUNCHES_F32 == launches      # CPU tensors never launch
     assert got.dtype == torch.float32 and tuple(got.shape) == (s,)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-2)
