@@ -459,7 +459,7 @@ F32_DRAWS = 20  # checks of each case, each with its own atomic order
 def f32_regimes(segsum, vals, gid, mask, s, rtol, atol,
                 against_f64: bool = False) -> dict:
     """Each regime of the f32 kernel, forced (the cluster fold at 1, 2, 4
-    and 8 CTAs, the scratch pass, one histogram copy a block), on one
+    and 8 CTAs, one histogram copy a block), on one
     input: within (rtol, atol) of plain (or of the float64 sum), and its
     queued device ms."""
     n = vals.shape[0]
@@ -479,11 +479,9 @@ def f32_regimes(segsum, vals, gid, mask, s, rtol, atol,
             for c in (1, 2, 4, 8):
                 plans[f"smem agg={agg} cluster={c}"] = segsum._f32_plan(
                     segsum.F32_SMEM, agg, n, s, sms, cluster=c)
-            plans[f"scratch agg={agg}"] = segsum._f32_plan(
-                segsum.F32_SCRATCH, agg, n, s, sms)
             # one histogram a block, not one a warp
             plans[f"smem agg={agg} cluster=2 copies=1"] = segsum._f32_plan(
-                segsum.F32_SMEM, agg, n, s, sms, cluster=2, reps=1)
+                segsum.F32_SMEM, agg, n, s, sms, cluster=2, copies=1)
     out = {}
     for name, plan in plans.items():
         k = segsum._f32(vals, gid, mask, s, plan).double()

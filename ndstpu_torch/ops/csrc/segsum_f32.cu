@@ -28,8 +28,6 @@
 //     distributed shared memory, each CTA summing its share of the bins
 //     across the cluster, and add every non-zero bin into the output with
 //     one global atomic: one atomic a cluster a bin, not a block.
-//   * SCRATCH: the same histograms written to a [blocks x s] scratch and
-//     summed by a second kernel, one thread a segment.
 //   * GLOBAL (few rows a segment, or s above what shared memory holds):
 //     rows add straight into the output with global atomics.
 //   * Float atomics on shared memory compile to a compare-and-swap loop on
@@ -60,7 +58,7 @@ namespace {
 // on sm_90, less 1 KB
 constexpr int kSmemDynMax = 232448 - 1024;
 
-enum Regime { kGlobal = 0, kSmem = 1, kScratch = 2 };
+enum Regime { kGlobal = 0, kSmem = 1 };
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -127,7 +125,7 @@ __global__ void __launch_bounds__(1024)
                       const int* __restrict__ gid,
                       const unsigned char* __restrict__ mask, long long n,
                       int num_segments, int head, int reps,
-                      float* __restrict__ out, float* __restrict__ scratch) {
+                      float* __restrict__ out) {
   // `reps` copies of the histogram; warp w adds into copy w % reps
   extern __shared__ __align__(16) float hist[];
   const int s = num_segments;
@@ -192,11 +190,6 @@ __global__ void __launch_bounds__(1024)
     }
     __syncthreads();
   }
-  if (R == kScratch) {
-    float* row = scratch + (long long)blockIdx.x * s;
-    for (int j = threadIdx.x; j < s; j += blockDim.x) row[j] = hist[j];
-    return;
-  }
   // fold the cluster's histograms: CTA r sums bins [r * chunk, +chunk)
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
@@ -213,21 +206,10 @@ __global__ void __launch_bounds__(1024)
   cluster.sync();
 }
 
-// out[j] = the sum over blocks of scratch[b * s + j]
-__global__ void segsum_f32_columns(const float* __restrict__ scratch,
-                                   int blocks, int s, float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= s) return;
-  float t = 0.f;
-  for (int b = 0; b < blocks; ++b) t += scratch[(long long)b * s + j];
-  out[j] = t;
-}
-
 template <int R, int AGG, int VEC>
 cudaError_t launch(const float* v, const int* g, const unsigned char* m,
-                   long long n, int s, int head, float* out, float* scratch,
-                   int grid, int block, int cluster, int smem,
-                   cudaStream_t st) {
+                   long long n, int s, int head, float* out, int grid,
+                   int block, int cluster, int smem, cudaStream_t st) {
   const int reps = R == kGlobal ? 1 : smem / (4 * s);
   auto kernel = segsum_f32_kernel<R, AGG, VEC>;
   if (smem > 0) {
@@ -255,17 +237,13 @@ cudaError_t launch(const float* v, const int* g, const unsigned char* m,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;
-  cudaError_t err =
-      cudaLaunchKernelEx(&cfg, kernel, v, g, m, n, s, head, reps, out, scratch);
-  if (err != cudaSuccess || R != kScratch) return err;
-  segsum_f32_columns<<<(s + 255) / 256, 256, 0, st>>>(scratch, grid, s, out);
-  return cudaGetLastError();
+  return cudaLaunchKernelEx(&cfg, kernel, v, g, m, n, s, head, reps, out);
 }
 
 template <int R, int AGG>
 cudaError_t launch_vec(const void* vals, const void* gid, const void* mask,
-                       long long n, int s, float* out, float* scratch,
-                       const Plan& p, cudaStream_t st) {
+                       long long n, int s, float* out, const Plan& p,
+                       cudaStream_t st) {
   const float* v = static_cast<const float*>(vals);
   const int* g = static_cast<const int*>(gid);
   const unsigned char* m = static_cast<const unsigned char*>(mask);
@@ -273,46 +251,37 @@ cudaError_t launch_vec(const void* vals, const void* gid, const void* mask,
   for (int h = 0; h < 4 && h < n; ++h)
     if (((uintptr_t)(v + h)) % 16 == 0 && ((uintptr_t)(g + h)) % 16 == 0 &&
         ((uintptr_t)(m + h)) % 4 == 0)
-      return launch<R, AGG, 4>(v, g, m, n, s, h, out, scratch, p.grid,
-                               p.block, p.cluster, p.smem, st);
-  return launch<R, AGG, 1>(v, g, m, n, s, 0, out, scratch, p.grid, p.block,
-                           p.cluster, p.smem, st);
+      return launch<R, AGG, 4>(v, g, m, n, s, h, out, p.grid, p.block,
+                               p.cluster, p.smem, st);
+  return launch<R, AGG, 1>(v, g, m, n, s, 0, out, p.grid, p.block, p.cluster,
+                           p.smem, st);
 }
 
 }  // namespace
 
-// Launches on `stream` with the caller's plan (ops/segsum.py::Plan):
-// regime (0 global, 1 shared memory with a cluster fold, 2 shared memory
-// with a scratch and a second pass), agg (warp-aggregated atomics: 0
-// none, 1 every row slot, 2 when a sampled slot shows a hot segment), grid,
-// block, cluster and dynamic shared-memory bytes.  Zeroes `out` first
-// unless the scratch pass writes all of it; `scratch` (float32 [grid x s])
-// is read only by that regime.  Returns the first CUDA error, or 0.
+// Zeroes `out` (float32 [num_segments]) on `stream` and, when
+// plan->grid > 0, launches the kernel once with the caller's plan
+// (ops/segsum.py::Plan): regime (0 global, 1 shared memory with a cluster
+// fold), agg (warp-aggregated atomics: 0 none, 1 every row slot, 2 when a
+// sampled slot shows a hot segment), grid, block, cluster and dynamic
+// shared-memory bytes.  Returns the first CUDA error, or 0.
 extern "C" int segsum_f32_launch(const void* vals, const void* gid,
                                  const void* mask, long long n,
-                                 int num_segments, void* out, void* scratch,
+                                 int num_segments, void* out,
                                  const Plan* plan, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  float* sc = static_cast<float*>(scratch);
   const int s = num_segments;
-  cudaError_t err = cudaSuccess;
-  if (plan->regime != kScratch || plan->grid <= 0)
-    err = cudaMemsetAsync(o, 0, (size_t)s * sizeof(float), st);
+  cudaError_t err = cudaMemsetAsync(o, 0, (size_t)s * sizeof(float), st);
   if (err != cudaSuccess || plan->grid <= 0) return (int)err;
-#define SEGSUM_F32_LAUNCH(R)                                               \
-  (plan->agg == 0   ? launch_vec<R, 0>(vals, gid, mask, n, s, o, sc, *plan, \
-                                       st)                                \
-   : plan->agg == 1 ? launch_vec<R, 1>(vals, gid, mask, n, s, o, sc, *plan, \
-                                       st)                                \
-                    : launch_vec<R, 2>(vals, gid, mask, n, s, o, sc, *plan, \
-                                       st))
+#define SEGSUM_F32_LAUNCH(R)                                                 \
+  (plan->agg == 0   ? launch_vec<R, 0>(vals, gid, mask, n, s, o, *plan, st) \
+   : plan->agg == 1 ? launch_vec<R, 1>(vals, gid, mask, n, s, o, *plan, st) \
+                    : launch_vec<R, 2>(vals, gid, mask, n, s, o, *plan, st))
   if (plan->regime == kGlobal)
     err = SEGSUM_F32_LAUNCH(kGlobal);
   else if (plan->regime == kSmem)
     err = SEGSUM_F32_LAUNCH(kSmem);
-  else if (plan->regime == kScratch)
-    err = SEGSUM_F32_LAUNCH(kScratch);
   else
     err = cudaErrorInvalidValue;
 #undef SEGSUM_F32_LAUNCH

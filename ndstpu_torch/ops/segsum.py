@@ -118,16 +118,15 @@ AGG_NONE, AGG_ALL, AGG_SAMPLED = 0, 1, 2
 # regimes of csrc/segsum_decimal.cu
 DEC_GLOBAL, DEC_SMEM, DEC_CLUSTER = 0, 1, 2
 # regimes of csrc/segsum_f32.cu
-F32_GLOBAL, F32_SMEM, F32_SCRATCH = 0, 1, 2
+F32_GLOBAL, F32_SMEM = 0, 1
 
 SMEM_BLOCK = 232448               # shared memory a block can use on sm_90
 SMEM_SM = 233472                  # shared memory of one SM (228 KB)
 SMEM_DYN_MAX = SMEM_BLOCK - 1024  # what the kernels ask for, at most
-# the decimal kernel privatises its histogram in shared memory from this
-# many rows a segment on (below, warp-aggregated global atomics)
+# the kernels keep histograms in shared memory from this many rows a
+# segment on, global atomics below: the crossover lies between 8 and 16
+# for both, at 4,096 and 24,443 segments (chip_smoke.py's sweep, PERF.md)
 DEC_SMEM_ROWS_PER_SEG = 16
-# the f32 kernel's histograms in shared memory from this many rows a
-# segment on (below, global atomics)
 F32_SMEM_ROWS_PER_SEG = 16
 F32_CLUSTER = 2                   # CTAs that fold their histograms together
 
@@ -137,7 +136,10 @@ _NO_KERNEL = Plan(0, 0, 0, 0, 1, 0)
 @functools.lru_cache(maxsize=1024)
 def _plan_decimal(n: int, s: int, sms: int) -> Plan:
     """The decimal kernel's launch for ``n`` rows over ``s`` segments on a
-    card of ``sms`` SMs."""
+    card of ``sms`` SMs.  Sampled grouping in every regime: it was within
+    7% of the best mode at every shape measured, where grouping every row
+    costs 85% on spread-out segments and none costs 2.5x on q42's few hot
+    ones (PERF.md)."""
     if n == 0:
         return _NO_KERNEL
     if n < DEC_SMEM_ROWS_PER_SEG * s or 12 * -(-s // 2) > SMEM_DYN_MAX:
@@ -163,7 +165,10 @@ def _decimal_plan(regime: int, agg: int, n: int, s: int, sms: int) -> Plan:
 @functools.lru_cache(maxsize=1024)
 def _plan_f32(n: int, s: int, sms: int) -> Plan:
     """The f32 kernel's launch for ``n`` rows over ``s`` segments on a card
-    of ``sms`` SMs."""
+    of ``sms`` SMs.  Global atomics group every row (a hot segment
+    serialises on one address); the per-warp histogram copies leave little
+    contention for grouping to remove, and it cost 25-50% at the measured
+    shapes (PERF.md)."""
     if n == 0:
         return _NO_KERNEL
     if n < F32_SMEM_ROWS_PER_SEG * s or 4 * s > SMEM_DYN_MAX:
@@ -172,21 +177,19 @@ def _plan_f32(n: int, s: int, sms: int) -> Plan:
 
 
 def _f32_plan(regime: int, agg: int, n: int, s: int, sms: int,
-              cluster: int = F32_CLUSTER, reps: int = 32) -> Plan:
+              cluster: int = F32_CLUSTER, copies: int = 32) -> Plan:
     """The f32 kernel's launch in ``regime`` (``n > 0``): global atomics
     fill the card (8 blocks of 256 an SM); histograms take blocks of 1024,
     two an SM where two fit, each with as many copies of its histogram as
-    fit, up to ``reps`` (one a warp), folded by clusters of up to
+    fit, up to ``copies`` (32: one a warp), folded by clusters of up to
     ``cluster``."""
     vecs = -(-n // 4)
     if regime == F32_GLOBAL:
         return Plan(regime, agg, min(-(-vecs // 256), sms * 8), 256, 1, 0)
     per_sm = 2 if 2 * (4 * s + 1024) <= SMEM_SM else 1
-    copies = max(1, min(reps, (SMEM_SM // per_sm - 1024) // (4 * s),
+    copies = max(1, min(copies, (SMEM_SM // per_sm - 1024) // (4 * s),
                         SMEM_DYN_MAX // (4 * s)))
     grid = min(sms * per_sm, -(-vecs // 1024))
-    if regime == F32_SCRATCH:
-        return Plan(regime, agg, grid, 1024, 1, 4 * s * copies)
     cluster = min(cluster, 1 << (grid.bit_length() - 1))
     return Plan(regime, agg, grid - grid % cluster, 1024, cluster,
                 4 * s * copies)
@@ -199,16 +202,23 @@ class _CPlan(ctypes.Structure):
 
 _PTR = ctypes.c_void_p
 _ARGTYPES = {
-    # vals, gid, mask, n, s, out, aux or scratch, plan, stream
-    name: [_PTR] * 3 + [ctypes.c_longlong, ctypes.c_int] + [_PTR] * 4
-    for name in ("segsum_decimal", "segsum_f32")}
+    # vals, gid, mask, n, s, out, aux, plan, stream
+    "segsum_decimal": [_PTR] * 3 + [ctypes.c_longlong, ctypes.c_int] +
+    [_PTR] * 4,
+    # vals, gid, mask, n, s, out, plan, stream
+    "segsum_f32": [_PTR] * 3 + [ctypes.c_longlong, ctypes.c_int] + [_PTR] * 3,
+}
 _FNS = {}       # kernel -> its bound ctypes launcher
 _SMS = {}       # device index -> SM count
-_CPLANS = {}    # Plan -> its _CPlan, kept alive for the launchers
 # (device index, stream) -> int64 [2]: the decimal kernel's out-of-range
 # flag and block tickets on that stream, zero between calls (the kernel's
 # last block resets them)
 _AUX = {}
+
+
+@functools.lru_cache(maxsize=1024)
+def _c_plan(plan: Plan) -> _CPlan:
+    return _CPlan(*plan)
 
 
 def _sms(dev: torch.device) -> int:
@@ -229,9 +239,7 @@ def _call(kernel: str, stream: int, *args, plan: Plan) -> None:
         fn.argtypes = _ARGTYPES[kernel]
         fn.restype = ctypes.c_int
         _FNS[kernel] = fn
-    cplan = _CPLANS.get(plan)
-    if cplan is None:
-        cplan = _CPLANS[plan] = _CPlan(*plan)
+    cplan = _c_plan(plan)
     err = fn(*args, ctypes.addressof(cplan), stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
@@ -312,9 +320,6 @@ def _f32(vals, gid, mask, num_segments: int, plan: Plan) -> torch.Tensor:
             return _f32(vals, gid, mask, num_segments, plan)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     out = torch.empty(s, dtype=torch.float32, device=dev)
-    scratch = torch.empty(plan.grid * s, dtype=torch.float32, device=dev) \
-        if plan.regime == F32_SCRATCH and plan.grid else None
     _call("segsum_f32", stream, vals.data_ptr(), gid.data_ptr(),
-          mask.data_ptr(), vals.shape[0], s, out.data_ptr(),
-          None if scratch is None else scratch.data_ptr(), plan=plan)
+          mask.data_ptr(), vals.shape[0], s, out.data_ptr(), plan=plan)
     return out
