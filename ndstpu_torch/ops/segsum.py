@@ -136,10 +136,10 @@ _NO_KERNEL = Plan(0, 0, 0, 0, 1, 0)
 @functools.lru_cache(maxsize=1024)
 def _plan_decimal(n: int, s: int, sms: int) -> Plan:
     """The decimal kernel's launch for ``n`` rows over ``s`` segments on a
-    card of ``sms`` SMs.  Sampled grouping in every regime: it was within
-    7% of the best mode at every shape measured, where grouping every row
-    costs 85% on spread-out segments and none costs 2.5x on q42's few hot
-    ones (PERF.md)."""
+    card of ``sms`` SMs.  Sampled grouping in every regime: it measured
+    at most 8% behind the best mode at the three timed shapes and 17%
+    across the sweep, where grouping every row costs 85% on spread-out
+    segments and no grouping 2.5x on q42's few hot ones (PERF.md)."""
     if n == 0:
         return _NO_KERNEL
     if n < DEC_SMEM_ROWS_PER_SEG * s or 12 * -(-s // 2) > SMEM_DYN_MAX:
