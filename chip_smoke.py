@@ -440,8 +440,8 @@ def check_segsum_f32(segsum, vals, gid, mask, s, rtol, atol,
     diff = (k.double() - ref).abs()
     share = float((diff / (atol + rtol * ref.abs())).max())
     if k.dtype != torch.float32 or k.shape != p.shape or share > 1:
-        raise AssertionError(f"segsum_f32 disagrees with its "
-                             f"{'float64 sum' if against_f64 else 'plain version'}"
+        what = "float64 sum" if against_f64 else "plain version"
+        raise AssertionError(f"segsum_f32 disagrees with its {what}"
                              f" at n={vals.shape[0]} s={s}: "
                              f"{float(diff.max())} ({share} of allowed)")
     return dict(max_abs_err=float(diff.max()), allowed_share=share,

@@ -162,8 +162,8 @@ constexpr int kHotLanes = 4;
 // The lanes whose rows share this lane's segment (lanes that take no row
 // get keys of their own: gids are below 2^31).
 __device__ __forceinline__ unsigned peers_of(bool take, int g) {
-  return __match_any_sync(kFull,
-                          take ? (unsigned)g : (0x80000000u | (threadIdx.x & 31)));
+  const unsigned own = 0x80000000u | (threadIdx.x & 31);
+  return __match_any_sync(kFull, take ? (unsigned)g : own);
 }
 
 // Adds the rows of each group of `peers` with one atomic a group: a
@@ -249,7 +249,8 @@ __global__ void __launch_bounds__(1024)
   bool oob = false;
   const int lane = threadIdx.x & 31;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x - lane;
+  const long long first =
+      (long long)blockIdx.x * blockDim.x + threadIdx.x - lane;
   // rows [head, head + VEC * nv) as vectors; the rest one by one below
   const long long nv = VEC == 1 ? n : (n - head) / VEC;
   for (long long base = first; base < nv; base += stride) {
@@ -343,20 +344,6 @@ cudaError_t launch(const void* vals, const void* gid, const void* mask,
                    int grid, int block, int cluster, int smem,
                    cudaStream_t st) {
   auto kernel = segsum_decimal_kernel<R, AGG, VEC>;
-  if (smem > 0) {
-    // the opt-in above 48 KB (static shared memory counts against the
-    // 48 KB too), once a device per instantiation
-    static unsigned long long allowed = 0;  // one bit a device
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (!(allowed & (1ULL << (dev & 63)))) {
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDynMax);
-      if (err != cudaSuccess) return err;
-      allowed |= 1ULL << (dev & 63);
-    }
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(block);
@@ -369,10 +356,10 @@ cudaError_t launch(const void* vals, const void* gid, const void* mask,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const long long*>(vals),
-                            static_cast<const int*>(gid),
-                            static_cast<const unsigned char*>(mask), n, s, head,
-                            static_cast<u64*>(buf), static_cast<u64*>(aux));
+  return cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const long long*>(vals),
+      static_cast<const int*>(gid), static_cast<const unsigned char*>(mask), n,
+      s, head, static_cast<u64*>(buf), static_cast<u64*>(aux));
 }
 
 template <int R, int AGG>
@@ -390,14 +377,43 @@ cudaError_t launch_vec(const void* vals, const void* gid, const void* mask,
                            p.cluster, p.smem, st);
 }
 
+// The opt-in above 48 KB of dynamic shared memory (static shared memory
+// counts against the 48 KB too) for one instantiation, on the current
+// device.
+template <int R, int AGG, int VEC>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(segsum_decimal_kernel<R, AGG, VEC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmemDynMax);
+}
+
+template <int R>
+cudaError_t allow_smem_regime() {
+  const cudaError_t errs[] = {allow_smem<R, 0, 1>(), allow_smem<R, 0, 4>(),
+                              allow_smem<R, 1, 1>(), allow_smem<R, 1, 4>(),
+                              allow_smem<R, 2, 1>(), allow_smem<R, 2, 4>()};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return e;
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// Prepares the current device for the launcher: the shared-memory opt-in
+// of every instantiation that uses shared memory.  Called once a device
+// before the first launch; returns the first CUDA error, or 0.
+extern "C" int segsum_decimal_prepare() {
+  cudaError_t err = allow_smem_regime<kSmem>();
+  if (err == cudaSuccess) err = allow_smem_regime<kCluster>();
+  return (int)err;
+}
 
 // Zeroes `buf` (int64 [2, num_segments]: sums, counts) on `stream` and,
 // when plan->grid > 0, launches the kernel once with the caller's plan
 // (ops/segsum.py::Plan): regime (0 global, 1 shared memory, 2 cluster of
-// 2), agg (warp-aggregated atomics), grid, block, cluster and dynamic
-// shared-memory bytes.  agg: 0 none, 1 every row slot, 2 when a sampled
-// slot shows a hot segment.  `aux` (int64 [2]) is the stream's flag and ticket
+// 2), agg (warp-aggregated atomics: 0 none, 1 every row slot, 2 when a
+// sampled slot shows a hot segment), grid, block, cluster and dynamic
+// shared-memory bytes.  `aux` (int64 [2]) is the stream's flag and ticket
 // words, zero on entry and left zero.  Returns the first CUDA error, or 0.
 extern "C" int segsum_decimal_launch(const void* vals, const void* gid,
                                      const void* mask, long long n,

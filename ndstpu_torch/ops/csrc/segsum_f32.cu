@@ -31,8 +31,8 @@
 //   * GLOBAL (few rows a segment, or s above what shared memory holds):
 //     rows add straight into the output with global atomics.
 //   * Float atomics on shared memory compile to a compare-and-swap loop on
-//     sm_90, which spins on a contended bin.  The plan's `agg` groups the lanes
-//     of a warp that share a segment (__match_any_sync, shuffles) so one
+//     sm_90, which spins on a contended bin.  The plan's `agg` groups the
+//     lanes of a warp that share a segment (__match_any_sync, shuffles) so one
 //     leader a group adds: on every row slot, or, sampled, on the four
 //     slots of a step whose first slot shows a segment holding 4 or more
 //     of the warp's 32 rows.
@@ -69,8 +69,8 @@ constexpr int kHotLanes = 4;
 // The lanes whose rows share this lane's segment (lanes that take no row
 // get keys of their own: gids are below 2^31).
 __device__ __forceinline__ unsigned peers_of(bool take, int g) {
-  return __match_any_sync(kFull,
-                          take ? (unsigned)g : (0x80000000u | (threadIdx.x & 31)));
+  const unsigned own = 0x80000000u | (threadIdx.x & 31);
+  return __match_any_sync(kFull, take ? (unsigned)g : own);
 }
 
 // Adds the rows of each group of `peers` with one atomic a group: a
@@ -212,19 +212,6 @@ cudaError_t launch(const float* v, const int* g, const unsigned char* m,
                    int block, int cluster, int smem, cudaStream_t st) {
   const int reps = R == kGlobal ? 1 : smem / (4 * s);
   auto kernel = segsum_f32_kernel<R, AGG, VEC>;
-  if (smem > 0) {
-    // the opt-in above 48 KB, once a device per instantiation
-    static unsigned long long allowed = 0;  // one bit a device
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (!(allowed & (1ULL << (dev & 63)))) {
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDynMax);
-      if (err != cudaSuccess) return err;
-      allowed |= 1ULL << (dev & 63);
-    }
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(block);
@@ -257,7 +244,34 @@ cudaError_t launch_vec(const void* vals, const void* gid, const void* mask,
                            p.smem, st);
 }
 
+// The opt-in above 48 KB of dynamic shared memory (static shared memory
+// counts against the 48 KB too) for one instantiation, on the current
+// device.
+template <int R, int AGG, int VEC>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(segsum_f32_kernel<R, AGG, VEC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmemDynMax);
+}
+
+template <int R>
+cudaError_t allow_smem_regime() {
+  const cudaError_t errs[] = {allow_smem<R, 0, 1>(), allow_smem<R, 0, 4>(),
+                              allow_smem<R, 1, 1>(), allow_smem<R, 1, 4>(),
+                              allow_smem<R, 2, 1>(), allow_smem<R, 2, 4>()};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return e;
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// Prepares the current device for the launcher: the shared-memory opt-in
+// of every instantiation that uses shared memory.  Called once a device
+// before the first launch; returns the first CUDA error, or 0.
+extern "C" int segsum_f32_prepare() {
+  return (int)allow_smem_regime<kSmem>();
+}
 
 // Zeroes `out` (float32 [num_segments]) on `stream` and, when
 // plan->grid > 0, launches the kernel once with the caller's plan

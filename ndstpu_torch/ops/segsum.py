@@ -208,7 +208,7 @@ _ARGTYPES = {
     # vals, gid, mask, n, s, out, plan, stream
     "segsum_f32": [_PTR] * 3 + [ctypes.c_longlong, ctypes.c_int] + [_PTR] * 3,
 }
-_FNS = {}       # kernel -> its bound ctypes launcher
+_FNS = {}       # (kernel, device index) -> its bound ctypes launcher
 _SMS = {}       # device index -> SM count
 # (device index, stream) -> int64 [2]: the decimal kernel's out-of-range
 # flag and block tickets on that stream, zero between calls (the kernel's
@@ -229,16 +229,25 @@ def _sms(dev: torch.device) -> int:
     return sms
 
 
-def _call(kernel: str, stream: int, *args, plan: Plan) -> None:
+def _call(kernel: str, device: int, stream: int, *args, plan: Plan
+          ) -> None:
     """Call ``csrc/<kernel>.cu``'s ``<kernel>_launch(*args, plan, stream)``
-    (built and bound on first use); raises on a CUDA error."""
-    fn = _FNS.get(kernel)
+    on the current device, index ``device`` (built, bound and prepared on
+    first use there); raises on a CUDA error."""
+    fn = _FNS.get((kernel, device))
     if fn is None:
         from ndstpu_torch.ops import build
-        fn = getattr(build.load(kernel), f"{kernel}_launch")
+        lib = build.load(kernel)
+        prepare = getattr(lib, f"{kernel}_prepare")
+        prepare.argtypes = []
+        prepare.restype = ctypes.c_int
+        err = prepare()
+        if err != 0:
+            raise RuntimeError(f"{kernel} prepare failed: CUDA error {err}")
+        fn = getattr(lib, f"{kernel}_launch")
         fn.argtypes = _ARGTYPES[kernel]
         fn.restype = ctypes.c_int
-        _FNS[kernel] = fn
+        _FNS[kernel, device] = fn
     cplan = _c_plan(plan)
     err = fn(*args, ctypes.addressof(cplan), stream)
     if err != 0:
@@ -259,7 +268,7 @@ def _decimal(vals, gid, mask, num_segments: int, plan: Plan
         aux = _AUX[dev.index, stream] = torch.zeros(2, dtype=torch.int64,
                                                     device=dev)
     buf = torch.empty((2, num_segments), dtype=torch.int64, device=dev)
-    _call("segsum_decimal", stream, vals.data_ptr(), gid.data_ptr(),
+    _call("segsum_decimal", dev.index, stream, vals.data_ptr(), gid.data_ptr(),
           mask.data_ptr(), vals.shape[0], num_segments, buf.data_ptr(),
           aux.data_ptr(), plan=plan)
     return buf[0], buf[1]
@@ -320,6 +329,6 @@ def _f32(vals, gid, mask, num_segments: int, plan: Plan) -> torch.Tensor:
             return _f32(vals, gid, mask, num_segments, plan)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     out = torch.empty(s, dtype=torch.float32, device=dev)
-    _call("segsum_f32", stream, vals.data_ptr(), gid.data_ptr(),
+    _call("segsum_f32", dev.index, stream, vals.data_ptr(), gid.data_ptr(),
           mask.data_ptr(), vals.shape[0], s, out.data_ptr(), plan=plan)
     return out
