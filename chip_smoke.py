@@ -106,6 +106,22 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def sass_atomics(build, name: str):
+    """Counts of the atomic opcodes compiled into kernel library ``name``
+    (``cuobjdump -sass``): whether an atomic add is native or a
+    compare-and-swap loop (``ATOMS.CAST.SPIN``).  None without the tool."""
+    tool = build.Path(build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(build._target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for op in sass.split():
+        if op.startswith(("ATOM", "RED")):
+            counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, after a warm-up."""
     fn()
@@ -887,7 +903,9 @@ def main() -> int:
 
     t0 = time.time()
     logs = build.build_all()
-    say("build", seconds=time.time() - t0, ptxas=logs)
+    say("build", seconds=time.time() - t0, ptxas=logs,
+        sass_atomics={p.stem: sass_atomics(build, p.stem)
+                      for p in sorted(build.CSRC.glob("*.cu"))})
 
     t0 = time.time()
     cat = datagen.generate(args.scale, args.seed, "cuda")
