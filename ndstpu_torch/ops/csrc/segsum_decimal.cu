@@ -32,15 +32,18 @@
 //     - CLUSTER, many rows a segment and s up to 38,570 (the engine's gate
 //       is 32,768): the histogram split across a thread-block cluster of
 //       2, each CTA owning half of the segments; rows add into the
-//       owner's shared memory through distributed shared memory (native
-//       64-bit atomics there).
-//   * How many atomics a hot segment costs (the plan's `agg`): the lanes
-//     of a warp that share a segment are grouped by __match_any_sync and
-//     summed by shuffles, and one leader a group adds the group's sum and
-//     count: one atomic a warp, not one a row.  Grouping every row costs
-//     more than it saves on spread-out segments, so the plan samples: a
-//     warp groups the four row slots of a step only when the first shows
-//     a segment holding 4 or more of its 32 rows.
+//       owner's shared memory through distributed shared memory, with the
+//       same two 32-bit atomics as the owner's own adds, so every atomic
+//       on a bin covers the same four bytes (atomics of different sizes
+//       on one location are not ordered by the memory model).
+//   * How many atomics a hot segment costs: the lanes of a warp that
+//     share a segment are grouped by __match_any_sync and summed by
+//     shuffles, and one leader a group adds the group's sum and count:
+//     one atomic a warp, not one a row.  Grouping every row costs more
+//     than it saves on spread-out segments, so a warp samples: it groups
+//     the four row slots of a step only when the first shows a segment
+//     holding 4 or more of its 32 rows (PERF.md has both other choices'
+//     times).
 // Rows are read 4 a thread as 16-byte vectors (two longlong2, an int4 of
 // gids, the 4 mask bytes as one word) when the three base pointers allow
 // it after a scalar head of at most 3 rows; otherwise one row a thread.
@@ -65,7 +68,7 @@ namespace cg = cooperative_groups;
 // A launch plan, as ops/segsum.py::Plan lays it out (outside the unnamed
 // namespace: the C launcher takes it).
 struct Plan {
-  int regime, agg, grid, block, cluster, smem;
+  int regime, grid, block, cluster, smem;
 };
 
 namespace {
@@ -81,11 +84,12 @@ enum Regime { kGlobal = 0, kSmem = 1, kCluster = 2 };
 
 typedef unsigned long long u64;
 
-// Adds a 64-bit value into shared memory with two native 32-bit atomics
-// (a 64-bit atomicAdd on shared memory compiles to a compare-and-swap
-// loop, which spins on a hot bin): the low word returns its old value,
-// which gives the carry into the high word.  Exact modulo 2^64 in any
-// order.
+// Adds a 64-bit value into a shared-memory bin, this CTA's or (through
+// distributed shared memory) its cluster peer's, with two native 32-bit
+// atomics (a 64-bit atomicAdd on shared memory compiles to a
+// compare-and-swap loop, which spins on a hot bin): the low word returns
+// its old value, which gives the carry into the high word.  Exact modulo
+// 2^64 in any order.  Every atomic on a bin goes through here.
 __device__ __forceinline__ void shared_add64(u64* p, u64 v) {
   unsigned* w = reinterpret_cast<unsigned*>(p);
   const unsigned lo = (unsigned)v;
@@ -125,8 +129,8 @@ struct Sink<kSmem> {
 template <>
 struct Sink<kCluster> {
   // CTA r owns segments [r * half, r * half + half): its own half adds
-  // with native shared atomics, the other CTA's through distributed shared
-  // memory
+  // into its shared memory, the other CTA's through distributed shared
+  // memory, both by shared_add64's 32-bit halves
   u64* own_s;
   unsigned* own_c;
   u64* other_s;
@@ -149,14 +153,14 @@ struct Sink<kCluster> {
       shared_add64(&own_s[j], v);
       if (c) atomicAdd(&own_c[j], c);
     } else {
-      atomicAdd(&other_s[j], v);
+      shared_add64(&other_s[j], v);
       if (c) atomicAdd(&other_c[j], c);
     }
   }
 };
 
 // A segment that holds this many of a warp's 32 rows on the sampled row
-// slot makes the warp group its rows (agg == 2).
+// slot makes the warp group its rows.
 constexpr int kHotLanes = 4;
 
 // The lanes whose rows share this lane's segment (lanes that take no row
@@ -190,30 +194,26 @@ __device__ __forceinline__ void add_grouped(const Sink<R>& sink,
 }
 
 // Adds K row slots, one row a lane each; every lane of the warp calls this
-// together.  AGG 0 adds row by row, 1 groups every slot, 2 groups all K
-// slots only when the first shows a hot segment (kHotLanes or more lanes).
-template <int R, int AGG, int K>
+// together.  All K slots are grouped when the first shows a hot segment
+// (kHotLanes or more lanes), else added row by row.
+template <int R, int K>
 __device__ __forceinline__ void add_rows(const Sink<R>& sink,
                                          const bool (&take)[K],
                                          const int (&g)[K],
                                          const long long (&v)[K]) {
-  bool grouped = AGG == 1;
-  unsigned first = 0;
-  if (AGG == 2) {
-    first = peers_of(take[0], g[0]);
-    grouped = __any_sync(kFull, __popc(first) >= kHotLanes);
-  }
+  const unsigned first = peers_of(take[0], g[0]);
+  const bool grouped = __any_sync(kFull, __popc(first) >= kHotLanes);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     if (grouped)
-      add_grouped(sink, AGG == 2 && k == 0 ? first : peers_of(take[k], g[k]),
-                  take[k], g[k], v[k]);
+      add_grouped(sink, k == 0 ? first : peers_of(take[k], g[k]), take[k],
+                  g[k], v[k]);
     else if (take[k])
       sink.add(g[k], (u64)v[k], v[k] != -kBias);
   }
 }
 
-template <int R, int AGG, int VEC>
+template <int R, int VEC>
 __global__ void __launch_bounds__(1024)
     segsum_decimal_kernel(const long long* __restrict__ vals,
                           const int* __restrict__ gid,
@@ -281,7 +281,7 @@ __global__ void __launch_bounds__(1024)
       take[k] = in && g[k] >= 0 && g[k] < num_segments;
       if (in) oob |= v[k] <= -kBias || v[k] >= kBias;
     }
-    add_rows<R, AGG, VEC>(sink, take, g, v);
+    add_rows<R, VEC>(sink, take, g, v);
   }
   if (VEC != 1 && blockIdx.x == 0 && threadIdx.x < 32) {
     // the scalar head (lanes 0..head-1) and tail (lanes 8..) of the rows
@@ -294,7 +294,7 @@ __global__ void __launch_bounds__(1024)
     const int gg[1] = {r >= 0 ? gid[r] : -1};
     const bool take[1] = {in && gg[0] >= 0 && gg[0] < num_segments};
     if (in) oob |= vv[0] <= -kBias || vv[0] >= kBias;
-    add_rows<R, AGG, 1>(sink, take, gg, vv);
+    add_rows<R, 1>(sink, take, gg, vv);
   }
 
   if (R == kCluster)
@@ -338,12 +338,12 @@ __global__ void __launch_bounds__(1024)
       sums[j] = (u64)kPoison;
 }
 
-template <int R, int AGG, int VEC>
+template <int R, int VEC>
 cudaError_t launch(const void* vals, const void* gid, const void* mask,
                    long long n, int s, int head, void* buf, void* aux,
                    int grid, int block, int cluster, int smem,
                    cudaStream_t st) {
-  auto kernel = segsum_decimal_kernel<R, AGG, VEC>;
+  auto kernel = segsum_decimal_kernel<R, VEC>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(block);
@@ -362,7 +362,7 @@ cudaError_t launch(const void* vals, const void* gid, const void* mask,
       s, head, static_cast<u64*>(buf), static_cast<u64*>(aux));
 }
 
-template <int R, int AGG>
+template <int R>
 cudaError_t launch_vec(const void* vals, const void* gid, const void* mask,
                        long long n, int s, void* buf, void* aux,
                        const Plan& p, cudaStream_t st) {
@@ -371,30 +371,20 @@ cudaError_t launch_vec(const void* vals, const void* gid, const void* mask,
                   pm = (uintptr_t)mask;
   for (int h = 0; h < 4 && h < n; ++h)
     if ((pv + 8 * h) % 16 == 0 && (pg + 4 * h) % 16 == 0 && (pm + h) % 4 == 0)
-      return launch<R, AGG, 4>(vals, gid, mask, n, s, h, buf, aux, p.grid,
-                               p.block, p.cluster, p.smem, st);
-  return launch<R, AGG, 1>(vals, gid, mask, n, s, 0, buf, aux, p.grid, p.block,
-                           p.cluster, p.smem, st);
+      return launch<R, 4>(vals, gid, mask, n, s, h, buf, aux, p.grid, p.block,
+                          p.cluster, p.smem, st);
+  return launch<R, 1>(vals, gid, mask, n, s, 0, buf, aux, p.grid, p.block,
+                      p.cluster, p.smem, st);
 }
 
 // The opt-in above 48 KB of dynamic shared memory (static shared memory
 // counts against the 48 KB too) for one instantiation, on the current
 // device.
-template <int R, int AGG, int VEC>
+template <int R, int VEC>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(segsum_decimal_kernel<R, AGG, VEC>,
+  return cudaFuncSetAttribute(segsum_decimal_kernel<R, VEC>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               kSmemDynMax);
-}
-
-template <int R>
-cudaError_t allow_smem_regime() {
-  const cudaError_t errs[] = {allow_smem<R, 0, 1>(), allow_smem<R, 0, 4>(),
-                              allow_smem<R, 1, 1>(), allow_smem<R, 1, 4>(),
-                              allow_smem<R, 2, 1>(), allow_smem<R, 2, 4>()};
-  for (cudaError_t e : errs)
-    if (e != cudaSuccess) return e;
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -403,18 +393,20 @@ cudaError_t allow_smem_regime() {
 // of every instantiation that uses shared memory.  Called once a device
 // before the first launch; returns the first CUDA error, or 0.
 extern "C" int segsum_decimal_prepare() {
-  cudaError_t err = allow_smem_regime<kSmem>();
-  if (err == cudaSuccess) err = allow_smem_regime<kCluster>();
-  return (int)err;
+  const cudaError_t errs[] = {allow_smem<kSmem, 1>(), allow_smem<kSmem, 4>(),
+                              allow_smem<kCluster, 1>(),
+                              allow_smem<kCluster, 4>()};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
 }
 
 // Zeroes `buf` (int64 [2, num_segments]: sums, counts) on `stream` and,
 // when plan->grid > 0, launches the kernel once with the caller's plan
 // (ops/segsum.py::Plan): regime (0 global, 1 shared memory, 2 cluster of
-// 2), agg (warp-aggregated atomics: 0 none, 1 every row slot, 2 when a
-// sampled slot shows a hot segment), grid, block, cluster and dynamic
-// shared-memory bytes.  `aux` (int64 [2]) is the stream's flag and ticket
-// words, zero on entry and left zero.  Returns the first CUDA error, or 0.
+// 2), grid, block, cluster and dynamic shared-memory bytes.  `aux`
+// (int64 [2]) is the stream's flag and ticket words, zero on entry and
+// left zero.  Returns the first CUDA error, or 0.
 extern "C" int segsum_decimal_launch(const void* vals, const void* gid,
                                      const void* mask, long long n,
                                      int num_segments, void* buf, void* aux,
@@ -424,21 +416,13 @@ extern "C" int segsum_decimal_launch(const void* vals, const void* gid,
       buf, 0, 2 * (size_t)num_segments * sizeof(long long), st);
   if (err != cudaSuccess || plan->grid <= 0) return (int)err;
   const int s = num_segments;
-#define SEGSUM_DECIMAL_LAUNCH(R)                                           \
-  (plan->agg == 0   ? launch_vec<R, 0>(vals, gid, mask, n, s, buf, aux,    \
-                                       *plan, st)                         \
-   : plan->agg == 1 ? launch_vec<R, 1>(vals, gid, mask, n, s, buf, aux,    \
-                                       *plan, st)                         \
-                    : launch_vec<R, 2>(vals, gid, mask, n, s, buf, aux,    \
-                                       *plan, st))
   if (plan->regime == kGlobal)
-    err = SEGSUM_DECIMAL_LAUNCH(kGlobal);
+    err = launch_vec<kGlobal>(vals, gid, mask, n, s, buf, aux, *plan, st);
   else if (plan->regime == kSmem)
-    err = SEGSUM_DECIMAL_LAUNCH(kSmem);
+    err = launch_vec<kSmem>(vals, gid, mask, n, s, buf, aux, *plan, st);
   else if (plan->regime == kCluster)
-    err = SEGSUM_DECIMAL_LAUNCH(kCluster);
+    err = launch_vec<kCluster>(vals, gid, mask, n, s, buf, aux, *plan, st);
   else
     err = cudaErrorInvalidValue;
-#undef SEGSUM_DECIMAL_LAUNCH
   return (int)err;
 }

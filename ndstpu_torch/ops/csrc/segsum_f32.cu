@@ -29,13 +29,14 @@
 //     across the cluster, and add every non-zero bin into the output with
 //     one global atomic: one atomic a cluster a bin, not a block.
 //   * GLOBAL (few rows a segment, or s above what shared memory holds):
-//     rows add straight into the output with global atomics.
+//     rows add straight into the output with global atomics.  The lanes
+//     of a warp that share a segment are grouped (__match_any_sync,
+//     shuffles) so one leader a group adds: a hot segment costs one
+//     atomic a warp, not one a row, on its one address.
 //   * Float atomics on shared memory compile to a compare-and-swap loop on
-//     sm_90, which spins on a contended bin.  The plan's `agg` groups the
-//     lanes of a warp that share a segment (__match_any_sync, shuffles) so one
-//     leader a group adds: on every row slot, or, sampled, on the four
-//     slots of a step whose first slot shows a segment holding 4 or more
-//     of the warp's 32 rows.
+//     sm_90, which spins on a contended bin; the copy a warp leaves each
+//     bin one warp's worth of contention, and grouping there cost more
+//     than it saved (PERF.md), so SMEM adds row by row.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC  (ndstpu_torch/ops/build.py)
@@ -49,7 +50,7 @@ namespace cg = cooperative_groups;
 // A launch plan, as ops/segsum.py::Plan lays it out (outside the unnamed
 // namespace: the C launcher takes it).
 struct Plan {
-  int regime, agg, grid, block, cluster, smem;
+  int regime, grid, block, cluster, smem;
 };
 
 namespace {
@@ -61,10 +62,6 @@ constexpr int kSmemDynMax = 232448 - 1024;
 enum Regime { kGlobal = 0, kSmem = 1 };
 
 constexpr unsigned kFull = 0xffffffffu;
-
-// A segment that holds this many of a warp's 32 rows on the sampled row
-// slot makes the warp group its rows (agg == 2).
-constexpr int kHotLanes = 4;
 
 // The lanes whose rows share this lane's segment (lanes that take no row
 // get keys of their own: gids are below 2^31).
@@ -94,32 +91,22 @@ __device__ __forceinline__ void add_grouped(float* sink, unsigned peers,
 }
 
 // Adds K row slots, one row a lane each; every lane of the warp calls this
-// together.  AGG 0 adds row by row, 1 groups every slot, 2 groups all K
-// slots only when the first shows a hot segment (kHotLanes or more lanes).
-// Float atomics on shared memory compile to a compare-and-swap loop on
-// sm_90, which spins on a hot bin; grouping makes a hot segment cost one
-// atomic a warp, not one a row.
-template <int AGG, int K>
+// together.  Into global memory the lanes that share a segment are
+// grouped; into a shared histogram copy each row adds on its own.
+template <int R, int K>
 __device__ __forceinline__ void add_rows(float* sink, const bool (&take)[K],
                                          const int (&g)[K],
                                          const float (&v)[K]) {
-  bool grouped = AGG == 1;
-  unsigned first = 0;
-  if (AGG == 2) {
-    first = peers_of(take[0], g[0]);
-    grouped = __any_sync(kFull, __popc(first) >= kHotLanes);
-  }
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    if (grouped)
-      add_grouped(sink, AGG == 2 && k == 0 ? first : peers_of(take[k], g[k]),
-                  take[k], g[k], v[k]);
+    if (R == kGlobal)
+      add_grouped(sink, peers_of(take[k], g[k]), take[k], g[k], v[k]);
     else if (take[k])
       atomicAdd(&sink[g[k]], v[k]);
   }
 }
 
-template <int R, int AGG, int VEC>
+template <int R, int VEC>
 __global__ void __launch_bounds__(1024)
     segsum_f32_kernel(const float* __restrict__ vals,
                       const int* __restrict__ gid,
@@ -164,7 +151,7 @@ __global__ void __launch_bounds__(1024)
 #pragma unroll
     for (int k = 0; k < VEC; ++k)
       take[k] = ((m >> (8 * k)) & 0xffu) && (unsigned)g[k] < (unsigned)s;
-    add_rows<AGG, VEC>(sink, take, g, v);
+    add_rows<R, VEC>(sink, take, g, v);
   }
   if (VEC != 1 && blockIdx.x == 0 && threadIdx.x < 32) {
     // the scalar head (lanes 0..head-1) and tail (lanes 8..) of the rows
@@ -176,7 +163,7 @@ __global__ void __launch_bounds__(1024)
     const int g[1] = {r >= 0 ? gid[r] : 0};
     const float v[1] = {r >= 0 ? vals[r] : 0.f};
     const bool take[1] = {in && (unsigned)g[0] < (unsigned)s};
-    add_rows<AGG, 1>(sink, take, g, v);
+    add_rows<R, 1>(sink, take, g, v);
   }
   if (R == kGlobal) return;
 
@@ -206,12 +193,12 @@ __global__ void __launch_bounds__(1024)
   cluster.sync();
 }
 
-template <int R, int AGG, int VEC>
+template <int R, int VEC>
 cudaError_t launch(const float* v, const int* g, const unsigned char* m,
                    long long n, int s, int head, float* out, int grid,
                    int block, int cluster, int smem, cudaStream_t st) {
   const int reps = R == kGlobal ? 1 : smem / (4 * s);
-  auto kernel = segsum_f32_kernel<R, AGG, VEC>;
+  auto kernel = segsum_f32_kernel<R, VEC>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(block);
@@ -227,7 +214,7 @@ cudaError_t launch(const float* v, const int* g, const unsigned char* m,
   return cudaLaunchKernelEx(&cfg, kernel, v, g, m, n, s, head, reps, out);
 }
 
-template <int R, int AGG>
+template <int R>
 cudaError_t launch_vec(const void* vals, const void* gid, const void* mask,
                        long long n, int s, float* out, const Plan& p,
                        cudaStream_t st) {
@@ -238,30 +225,20 @@ cudaError_t launch_vec(const void* vals, const void* gid, const void* mask,
   for (int h = 0; h < 4 && h < n; ++h)
     if (((uintptr_t)(v + h)) % 16 == 0 && ((uintptr_t)(g + h)) % 16 == 0 &&
         ((uintptr_t)(m + h)) % 4 == 0)
-      return launch<R, AGG, 4>(v, g, m, n, s, h, out, p.grid, p.block,
-                               p.cluster, p.smem, st);
-  return launch<R, AGG, 1>(v, g, m, n, s, 0, out, p.grid, p.block, p.cluster,
-                           p.smem, st);
+      return launch<R, 4>(v, g, m, n, s, h, out, p.grid, p.block, p.cluster,
+                          p.smem, st);
+  return launch<R, 1>(v, g, m, n, s, 0, out, p.grid, p.block, p.cluster,
+                      p.smem, st);
 }
 
 // The opt-in above 48 KB of dynamic shared memory (static shared memory
-// counts against the 48 KB too) for one instantiation, on the current
-// device.
-template <int R, int AGG, int VEC>
+// counts against the 48 KB too) for one shared-memory instantiation, on
+// the current device.
+template <int VEC>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(segsum_f32_kernel<R, AGG, VEC>,
+  return cudaFuncSetAttribute(segsum_f32_kernel<kSmem, VEC>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               kSmemDynMax);
-}
-
-template <int R>
-cudaError_t allow_smem_regime() {
-  const cudaError_t errs[] = {allow_smem<R, 0, 1>(), allow_smem<R, 0, 4>(),
-                              allow_smem<R, 1, 1>(), allow_smem<R, 1, 4>(),
-                              allow_smem<R, 2, 1>(), allow_smem<R, 2, 4>()};
-  for (cudaError_t e : errs)
-    if (e != cudaSuccess) return e;
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -270,15 +247,15 @@ cudaError_t allow_smem_regime() {
 // of every instantiation that uses shared memory.  Called once a device
 // before the first launch; returns the first CUDA error, or 0.
 extern "C" int segsum_f32_prepare() {
-  return (int)allow_smem_regime<kSmem>();
+  const cudaError_t err = allow_smem<1>();
+  return (int)(err != cudaSuccess ? err : allow_smem<4>());
 }
 
 // Zeroes `out` (float32 [num_segments]) on `stream` and, when
 // plan->grid > 0, launches the kernel once with the caller's plan
 // (ops/segsum.py::Plan): regime (0 global, 1 shared memory with a cluster
-// fold), agg (warp-aggregated atomics: 0 none, 1 every row slot, 2 when a
-// sampled slot shows a hot segment), grid, block, cluster and dynamic
-// shared-memory bytes.  Returns the first CUDA error, or 0.
+// fold), grid, block, cluster and dynamic shared-memory bytes.  Returns
+// the first CUDA error, or 0.
 extern "C" int segsum_f32_launch(const void* vals, const void* gid,
                                  const void* mask, long long n,
                                  int num_segments, void* out,
@@ -288,16 +265,11 @@ extern "C" int segsum_f32_launch(const void* vals, const void* gid,
   const int s = num_segments;
   cudaError_t err = cudaMemsetAsync(o, 0, (size_t)s * sizeof(float), st);
   if (err != cudaSuccess || plan->grid <= 0) return (int)err;
-#define SEGSUM_F32_LAUNCH(R)                                                 \
-  (plan->agg == 0   ? launch_vec<R, 0>(vals, gid, mask, n, s, o, *plan, st) \
-   : plan->agg == 1 ? launch_vec<R, 1>(vals, gid, mask, n, s, o, *plan, st) \
-                    : launch_vec<R, 2>(vals, gid, mask, n, s, o, *plan, st))
   if (plan->regime == kGlobal)
-    err = SEGSUM_F32_LAUNCH(kGlobal);
+    err = launch_vec<kGlobal>(vals, gid, mask, n, s, o, *plan, st);
   else if (plan->regime == kSmem)
-    err = SEGSUM_F32_LAUNCH(kSmem);
+    err = launch_vec<kSmem>(vals, gid, mask, n, s, o, *plan, st);
   else
     err = cudaErrorInvalidValue;
-#undef SEGSUM_F32_LAUNCH
   return (int)err;
 }

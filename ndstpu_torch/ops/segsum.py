@@ -99,22 +99,17 @@ def _to_kernel(name: str, vals, gid, mask, num_segments: int,
 
 
 class Plan(NamedTuple):
-    """How one call runs: the kernel's ``regime``, warp-aggregated atomics
-    (``agg``), the launch's ``grid``, ``block`` and ``cluster`` sizes and
-    its dynamic shared-memory bytes (for the f32 kernel, ``smem // (4 *
-    s)`` copies of its histogram).  ``grid == 0`` launches nothing (no
-    rows)."""
+    """How one call runs: the kernel's ``regime``, the launch's ``grid``,
+    ``block`` and ``cluster`` sizes and its dynamic shared-memory bytes
+    (for the f32 kernel, ``smem // (4 * s)`` copies of its histogram).
+    ``grid == 0`` launches nothing (no rows)."""
     regime: int
-    agg: int
     grid: int
     block: int
     cluster: int
     smem: int
 
 
-# warp aggregation of both kernels: none, on every row slot, or on all
-# four slots of a step when its first slot shows a hot segment
-AGG_NONE, AGG_ALL, AGG_SAMPLED = 0, 1, 2
 # regimes of csrc/segsum_decimal.cu
 DEC_GLOBAL, DEC_SMEM, DEC_CLUSTER = 0, 1, 2
 # regimes of csrc/segsum_f32.cu
@@ -130,69 +125,60 @@ DEC_SMEM_ROWS_PER_SEG = 16
 F32_SMEM_ROWS_PER_SEG = 16
 F32_CLUSTER = 2                   # CTAs that fold their histograms together
 
-_NO_KERNEL = Plan(0, 0, 0, 0, 1, 0)
+_NO_KERNEL = Plan(0, 0, 0, 1, 0)
 
 
 @functools.lru_cache(maxsize=1024)
 def _plan_decimal(n: int, s: int, sms: int) -> Plan:
     """The decimal kernel's launch for ``n`` rows over ``s`` segments on a
-    card of ``sms`` SMs.  Sampled grouping in every regime: it measured
-    at most 8% behind the best mode at the three timed shapes and 17%
-    across the sweep, where grouping every row costs 85% on spread-out
-    segments and no grouping 2.5x on q42's few hot ones (PERF.md)."""
+    card of ``sms`` SMs."""
     if n == 0:
         return _NO_KERNEL
     if n < DEC_SMEM_ROWS_PER_SEG * s or 12 * -(-s // 2) > SMEM_DYN_MAX:
-        return _decimal_plan(DEC_GLOBAL, AGG_SAMPLED, n, s, sms)
+        return _decimal_plan(DEC_GLOBAL, n, s, sms)
     if 12 * s <= SMEM_DYN_MAX:
-        return _decimal_plan(DEC_SMEM, AGG_SAMPLED, n, s, sms)
-    return _decimal_plan(DEC_CLUSTER, AGG_SAMPLED, n, s, sms)
+        return _decimal_plan(DEC_SMEM, n, s, sms)
+    return _decimal_plan(DEC_CLUSTER, n, s, sms)
 
 
-def _decimal_plan(regime: int, agg: int, n: int, s: int, sms: int) -> Plan:
+def _decimal_plan(regime: int, n: int, s: int, sms: int) -> Plan:
     """The decimal kernel's launch in ``regime`` (``n > 0``): global
     atomics fill the card (8 blocks of 256 an SM), histograms take one
     block of 1024 an SM, or one CTA of a cluster of 2 each."""
     vecs = -(-n // 4)
     if regime == DEC_GLOBAL:
-        return Plan(regime, agg, min(-(-vecs // 256), sms * 8), 256, 1, 0)
+        return Plan(regime, min(-(-vecs // 256), sms * 8), 256, 1, 0)
     grid = min(sms, -(-vecs // 1024))
     if regime == DEC_SMEM:
-        return Plan(regime, agg, grid, 1024, 1, 12 * s)
-    return Plan(regime, agg, 2 * max(1, grid // 2), 1024, 2, 12 * -(-s // 2))
+        return Plan(regime, grid, 1024, 1, 12 * s)
+    return Plan(regime, 2 * max(1, grid // 2), 1024, 2, 12 * -(-s // 2))
 
 
 @functools.lru_cache(maxsize=1024)
 def _plan_f32(n: int, s: int, sms: int) -> Plan:
     """The f32 kernel's launch for ``n`` rows over ``s`` segments on a card
-    of ``sms`` SMs.  Global atomics group every row (a hot segment
-    serialises on one address); the per-warp histogram copies leave little
-    contention for grouping to remove, and it cost 25-50% at the measured
-    shapes (PERF.md)."""
+    of ``sms`` SMs."""
     if n == 0:
         return _NO_KERNEL
     if n < F32_SMEM_ROWS_PER_SEG * s or 4 * s > SMEM_DYN_MAX:
-        return _f32_plan(F32_GLOBAL, AGG_ALL, n, s, sms)
-    return _f32_plan(F32_SMEM, AGG_NONE, n, s, sms)
+        return _f32_plan(F32_GLOBAL, n, s, sms)
+    return _f32_plan(F32_SMEM, n, s, sms)
 
 
-def _f32_plan(regime: int, agg: int, n: int, s: int, sms: int,
-              cluster: int = F32_CLUSTER, copies: int = 32) -> Plan:
+def _f32_plan(regime: int, n: int, s: int, sms: int) -> Plan:
     """The f32 kernel's launch in ``regime`` (``n > 0``): global atomics
     fill the card (8 blocks of 256 an SM); histograms take blocks of 1024,
     two an SM where two fit, each with as many copies of its histogram as
-    fit, up to ``copies`` (32: one a warp), folded by clusters of up to
-    ``cluster``."""
+    fit, up to one a warp, folded by clusters of up to ``F32_CLUSTER``."""
     vecs = -(-n // 4)
     if regime == F32_GLOBAL:
-        return Plan(regime, agg, min(-(-vecs // 256), sms * 8), 256, 1, 0)
+        return Plan(regime, min(-(-vecs // 256), sms * 8), 256, 1, 0)
     per_sm = 2 if 2 * (4 * s + 1024) <= SMEM_SM else 1
-    copies = max(1, min(copies, (SMEM_SM // per_sm - 1024) // (4 * s),
+    copies = max(1, min(1024 // 32, (SMEM_SM // per_sm - 1024) // (4 * s),
                         SMEM_DYN_MAX // (4 * s)))
     grid = min(sms * per_sm, -(-vecs // 1024))
-    cluster = min(cluster, 1 << (grid.bit_length() - 1))
-    return Plan(regime, agg, grid - grid % cluster, 1024, cluster,
-                4 * s * copies)
+    cluster = min(F32_CLUSTER, 1 << (grid.bit_length() - 1))
+    return Plan(regime, grid - grid % cluster, 1024, cluster, 4 * s * copies)
 
 
 class _CPlan(ctypes.Structure):
