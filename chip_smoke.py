@@ -37,10 +37,16 @@ non-zero:
    and held against the numpy reference as in phase 5 (decimals exact,
    q9's averages within 1e-5 relative); then q88 once more with the name
    of a generated store for the template's 'ese', which names none, so
-   that its four counts are not 0.
+   that its four counts are not 0;
+8. store window and rollup reports: q36, q47, q67, q89 and q98 (rollups
+   with ``grouping()``, ranks, windowed aggregates over aggregates, a
+   self-join on rank) through the same session, recorded and held
+   against the numpy reference as in phase 5 (decimals exact, floats
+   within 1e-5 relative, in the query's order); q36's rollup must reach
+   ``segsum_decimal``.
 
-Phases 5, 6 and 7 are the main paths: the kernel launch counts are set
-to 0 just before each and read just after, and every kernel each path
+Phases 5, 6, 7 and 8 are the main paths: the kernel launch counts are
+set to 0 just before each and read just after, and every kernel each path
 runs must have launched.  Then one JSON line of kernels, and last the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -59,7 +65,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ndstpu_torch.queries import Q9_BUCKETS, QUERIES, STORE_QUERIES
+from ndstpu_torch.queries import (Q9_BUCKETS, QUERIES, STORE_QUERIES,
+                                  WINDOW_QUERIES)
 
 # H100 SXM HBM3 rate (NVIDIA data sheet): the bound of a byte-bound kernel
 HBM_BYTES_PER_S = 3.35e12
@@ -598,16 +605,352 @@ def _dense_index(dim_keys: np.ndarray, keys: np.ndarray, valid) -> np.ndarray:
     return idx if valid is None else np.where(valid, idx, -1)
 
 
+def _exact_sums(groups: np.ndarray, vals: np.ndarray, n: int) -> np.ndarray:
+    """Per-group int64 sums through a float64 bincount, which is exact
+    while every partial sum stays below 2^53 (checked)."""
+    bound = np.bincount(groups, weights=np.abs(vals), minlength=n)
+    assert bound.max(initial=0) < 2 ** 53
+    return np.bincount(groups, weights=vals, minlength=n).astype(np.int64)
+
+
+def _runs(sorted_keys: np.ndarray) -> np.ndarray:
+    """Start of each run of equal values in a sorted array."""
+    return np.flatnonzero(np.r_[True, sorted_keys[1:] != sorted_keys[:-1]])
+
+
+def _first_rows(rows: np.ndarray, *keys) -> np.ndarray:
+    """``rows`` sorted by ``keys`` (the first the primary), cut after the
+    LIMIT-th and the rows that tie with it on every key."""
+    order = rows[np.lexsort(tuple(k[rows] for k in reversed(keys)))]
+    if len(order) <= LIMIT:
+        return order
+    last = order[LIMIT - 1]
+    n = LIMIT
+    while n < len(order) and all(k[order[n]] == k[last] for k in keys):
+        n += 1
+    return order[:n]
+
+
+def _null_first(row) -> tuple:
+    """Ascending sort key with NULL (None) before every value."""
+    return tuple((0, 0) if x is None else (1, x) for x in row)
+
+
+# each window report's ORDER BY over its result row, as a sort key
+WINDOW_ORDER = {
+    # lochierarchy desc, case when lochierarchy = 0 then i_category end,
+    # rank_within_parent
+    "q36": lambda r: (-r[3],) + _null_first(
+        (r[1] if r[3] == 0 else None, r[4])),
+    # sum_sales - avg_monthly_sales (the engine's float64 difference),
+    # s_store_name
+    "q47": lambda r: (r[7] / 100 - r[6], r[2]),
+    # all ten columns, ascending
+    "q67": _null_first,
+    "q89": lambda r: (r[6] / 100 - r[7], r[3]),
+    "q98": lambda r: (r[2], r[3], r[0], r[1], r[6]),
+}
+
+
 class StoreReference:
-    """q9, q43, q88 and q93 answered from host copies of the generated
-    tables with numpy alone; each method returns the result rows in the
-    query's order (decimals as scaled int64, averages as floats)."""
+    """q9, q43, q88, q93 and the window and rollup reports q36, q47, q67,
+    q89 and q98 answered from host copies of the generated tables with
+    numpy alone, written from the SQL and independent of the engine; each
+    method returns the result rows in the query's order (decimals as
+    scaled int64, averages and ratios as floats, computed with the
+    engine's float64 operations in the same order, so that ranks and ties
+    come out the same)."""
 
     def __init__(self, cat):
         self.cat = cat
+        self.memo = {}
 
     def col(self, table, col):
         return _host(self.cat, table, col)[0]
+
+    def codes(self, table, col):
+        """(codes, dictionary) of a string column on the host."""
+        c = self.cat.get(table).column(col)
+        return c.data.cpu().numpy(), c.dictionary
+
+    def fact(self, col):
+        """store_sales column on the host (memoized)."""
+        if col not in self.memo:
+            self.memo[col] = _host(self.cat, "store_sales", col)
+        return self.memo[col]
+
+    def dim_rows(self, fk, table, key):
+        """Row of ``table`` each store_sales row joins through ``fk``, or
+        -1 for a NULL key (memoized)."""
+        if (fk, table) not in self.memo:
+            keys, ok = self.fact(fk)
+            self.memo[(fk, table)] = _dense_index(self.col(table, key), keys,
+                                                  ok)
+        return self.memo[(fk, table)]
+
+    def star(self, date_ok, item_ok=None, store_ok=None):
+        """store_sales rows (as indices) that join date_dim, item and
+        store and pass each dimension's mask, with their dimension rows."""
+        d = self.dim_rows("ss_sold_date_sk", "date_dim", "d_date_sk")
+        i = self.dim_rows("ss_item_sk", "item", "i_item_sk")
+        st = self.dim_rows("ss_store_sk", "store", "s_store_sk")
+        sel = (d >= 0) & np.append(date_ok, False)[d]
+        if item_ok is not None:
+            sel &= np.append(item_ok, False)[i]
+        if store_ok is not None:
+            sel &= (st >= 0) & np.append(store_ok, False)[st]
+        rows = np.flatnonzero(sel)
+        return rows, d[rows], i[rows], st[rows]
+
+    def q36(self) -> list:
+        """Gross margin by the rollup of (i_category, i_class) over 1998
+        sales in eight states, ranked by margin within each parent."""
+        states = ("AL", "GA", "CA", "CO", "FL", "ID", "IL", "IN")
+        rows, _, i, _ = self.star(
+            self.col("date_dim", "d_year") == 1998,
+            store_ok=np.isin(self.col("store", "s_state"), states))
+        cat, cat_dict = self.codes("item", "i_category")
+        cls, cls_dict = self.codes("item", "i_class")
+        ncls = len(cls_dict)
+        g = cat[i].astype(np.int64) * ncls + cls[i]
+        nb = len(cat_dict) * ncls
+        profit = _exact_sums(g, self.fact("ss_net_profit")[0][rows], nb)
+        sales = _exact_sums(g, self.fact("ss_ext_sales_price")[0][rows], nb)
+        present = np.bincount(g, minlength=nb) > 0
+        # one entry per group of each rollup level: (keys, profit, sales)
+        levels = {0: [((str(cat_dict[b // ncls]), str(cls_dict[b % ncls])),
+                       profit[b], sales[b]) for b in np.flatnonzero(present)]}
+        by_cat = {}
+        for (c, _), pr, sa in levels[0]:
+            t = by_cat.setdefault(c, [0, 0])
+            t[0] += pr
+            t[1] += sa
+        levels[1] = [((c, None), pr, sa) for c, (pr, sa) in by_cat.items()]
+        levels[2] = [((None, None), int(profit.sum()), int(sales.sum()))]
+        out = []
+        for lvl, groups in levels.items():
+            # margin as the engine divides decimals: each sum / 100 in
+            # float64, then the quotient
+            gm = [(float(pr) / 100) / (float(sa) / 100) for _, pr, sa in groups]
+            for (keys, _, _), m in zip(groups, gm):
+                peers = [x for (k2, _, _), x in zip(groups, gm)
+                         if lvl != 0 or k2[0] == keys[0]]
+                rank = 1 + sum(x < m for x in peers)
+                out.append((m, keys[0], keys[1], lvl, rank))
+        return sorted(out, key=WINDOW_ORDER["q36"])
+
+    def _monthly(self, date_ok, item_ok, keys):
+        """sum(ss_sales_price) by the item and store string attributes
+        ``keys`` and the sale's (d_year, d_moy), for the sales that pass
+        the masks: (each group's key codes by column, with d_year and
+        d_moy as values; the dictionaries; the sums), groups in the order
+        of (keys, d_year, d_moy)."""
+        rows, d, i, st = self.star(date_ok, item_ok, np.ones(
+            len(self.col("store", "s_store_sk")), bool))
+        parts, dicts = [], {}
+        for table, col in keys:
+            code, dicts[col] = self.codes(table, col)
+            parts.append(code[i if table == "item" else st].astype(np.int64))
+        parts.append(self.col("date_dim", "d_year")[d].astype(np.int64))
+        parts.append(self.col("date_dim", "d_moy")[d].astype(np.int64))
+        radix = [len(dicts[c]) for _, c in keys] + [3000, 13]
+        comp = np.zeros(len(rows), np.int64)
+        for p, r in zip(parts, radix):
+            comp = comp * r + p
+        uniq, inv = np.unique(comp, return_inverse=True)
+        sums = _exact_sums(inv.reshape(-1), self.fact("ss_sales_price")[0][
+            rows], len(uniq))
+        vals = []
+        for r in reversed(radix):
+            vals.append(uniq % r)
+            uniq = uniq // r
+        vals.reverse()
+        names = [c for _, c in keys] + ["d_year", "d_moy"]
+        return dict(zip(names, vals)), dicts, sums
+
+    @staticmethod
+    def _partition_avg(part_keys, sums):
+        """avg of ``sums`` over each partition of equal ``part_keys`` rows,
+        as the engine's windowed avg of a decimal computes it: the exact
+        int64 total in float64, over the count, over 10^scale."""
+        comp = np.zeros(len(sums), np.int64)
+        for p in part_keys:
+            comp = comp * (int(p.max(initial=0)) + 1) + p
+        inv = np.unique(comp, return_inverse=True)[1].reshape(-1)
+        tot = _exact_sums(inv, sums, inv.max() + 1)
+        cnt = np.bincount(inv)
+        return (tot.astype(np.float64) / cnt / 100)[inv]
+
+    def q89(self) -> list:
+        """Monthly 1998 sales by item class, brand and store, against
+        their partition's average, for six (category, class) pairs."""
+        cat = self.col("item", "i_category")
+        cls = self.col("item", "i_class")
+        item_ok = (np.isin(cat, ("Books", "Electronics", "Sports")) &
+                   np.isin(cls, ("computers", "stereo", "football"))) | \
+            (np.isin(cat, ("Men", "Jewelry", "Women")) &
+             np.isin(cls, ("shirts", "birdal", "dresses")))
+        keys = (("item", "i_category"), ("item", "i_class"),
+                ("item", "i_brand"), ("store", "s_store_name"),
+                ("store", "s_company_name"))
+        g, dicts, sums = self._monthly(
+            self.col("date_dim", "d_year") == 1998, item_ok, keys)
+        avg = self._partition_avg(
+            [g[k] for k in ("i_category", "i_brand", "s_store_name",
+                            "s_company_name")], sums)
+        # the engine's float64 operations, in its order
+        dev = sums.astype(np.float64) / 100 - avg
+        with np.errstate(divide="ignore", invalid="ignore"):
+            keep = (avg != 0) & (np.abs(dev) / avg > 0.1)
+        out = [tuple(str(dicts[c][g[c][j]]) for _, c in keys) +
+               (int(g["d_moy"][j]), int(sums[j]), float(avg[j]))
+               for j in _first_rows(np.flatnonzero(keep), dev,
+                                    g["s_store_name"])]
+        return sorted(out, key=WINDOW_ORDER["q89"])
+
+    def q47(self) -> list:
+        """Monthly 2001 sales by brand and store against the year's
+        average, with the months before and after in the store's own
+        sequence of months."""
+        year = self.col("date_dim", "d_year")
+        moy = self.col("date_dim", "d_moy")
+        date_ok = (year == 2001) | ((year == 2000) & (moy == 12)) | \
+            ((year == 2002) & (moy == 1))
+        keys = (("item", "i_category"), ("item", "i_brand"),
+                ("store", "s_store_name"), ("store", "s_company_name"))
+        g, dicts, sums = self._monthly(date_ok, None, keys)
+        part = [g[k] for _, k in keys]
+        avg = self._partition_avg(part + [g["d_year"]], sums)
+        # the groups come sorted by (keys, year, month): rank within the
+        # four keys is the position in that order
+        pid = np.zeros(len(sums), np.int64)
+        for p in part:
+            pid = pid * (p.max(initial=0) + 1) + p
+        same_prev = np.r_[False, pid[1:] == pid[:-1]]
+        same_next = np.r_[pid[:-1] == pid[1:], False]
+        dev = sums.astype(np.float64) / 100 - avg
+        with np.errstate(divide="ignore", invalid="ignore"):
+            keep = same_prev & same_next & (g["d_year"] == 2001) & \
+                (avg > 0) & (np.abs(dev) / avg > 0.1)
+        out = [tuple(str(dicts[c][g[c][j]]) for _, c in keys) +
+               (2001, int(g["d_moy"][j]), float(avg[j]), int(sums[j]),
+                int(sums[j - 1]), int(sums[j + 1]))
+               for j in _first_rows(np.flatnonzero(keep), dev,
+                                    g["s_store_name"])]
+        return sorted(out, key=WINDOW_ORDER["q47"])
+
+    def q98(self) -> list:
+        """Each item's revenue over 31 days of 1999 in three categories,
+        and its share of its class's revenue."""
+        day0 = int((np.datetime64("1999-02-22") -
+                    np.datetime64("1970-01-01")).astype(np.int64))
+        date = self.col("date_dim", "d_date").astype(np.int64)
+        cat, cat_dict = self.codes("item", "i_category")
+        item_ok = np.isin(cat_dict[cat], ("Men", "Women", "Jewelry"))
+        rows, _, i, _ = self.star((date >= day0) & (date <= day0 + 30),
+                                  item_ok)
+        n_item = len(cat)
+        rev = _exact_sums(i, self.fact("ss_ext_sales_price")[0][rows],
+                          n_item)
+        sold = np.flatnonzero(np.bincount(i, minlength=n_item) > 0)
+        cls, cls_dict = self.codes("item", "i_class")
+        class_rev = _exact_sums(cls[sold], rev[sold], len(cls_dict))
+        item_id = self.col("item", "i_item_id")
+        desc = self.col("item", "i_item_desc")
+        price = self.col("item", "i_current_price")
+        out = []
+        for j in sold.tolist():
+            # sum * 100 (scale 2) over the class sum, as the engine divides
+            # decimals: each operand / 100 in float64, then the quotient
+            ratio = (float(rev[j] * 100) / 100) / \
+                (float(class_rev[cls[j]]) / 100)
+            out.append((str(item_id[j]), str(desc[j]), str(cat_dict[cat[j]]),
+                        str(cls_dict[cls[j]]), int(price[j]), int(rev[j]),
+                        ratio))
+        return sorted(out, key=WINDOW_ORDER["q98"])
+
+    def q67(self) -> list:
+        """The 8-level rollup of sales by item, month and store over twelve
+        months, ranked by sales within each category; the rows ranked 100
+        or better, in the query's order."""
+        seq = self.col("date_dim", "d_month_seq")
+        months = np.arange(1193, 1193 + 12)
+        n_store = len(self.col("store", "s_store_sk"))
+        rows, d, i, st = self.star(np.isin(seq, months),
+                                   store_ok=np.ones(n_store, bool))
+        sales = self.fact("ss_sales_price")[0][rows] * \
+            self.fact("ss_quantity")[0][rows]
+        # each month's (year, quarter, month), and its (year, quarter) and
+        # year as indices that grow with the month
+        first = np.array([np.flatnonzero(seq == m)[0] for m in months])
+        m_year, m_qoy, m_moy = (self.col("date_dim", c)[first]
+                                for c in ("d_year", "d_qoy", "d_moy"))
+        m_yq = np.unique(m_year * 4 + m_qoy, return_inverse=True)[1]
+        m_y = np.unique(m_year, return_inverse=True)[1]
+        # finest level (item, month, store): sorted item-major, so each
+        # coarser level down to the item sums runs of the finest groups
+        fine, inv = np.unique((i.astype(np.int64) * 12 + seq[d] - 1193) *
+                              n_store + st, return_inverse=True)
+        fsum = _exact_sums(inv.reshape(-1), sales, len(fine))
+        f_item = fine // (12 * n_store)
+        f_month = (fine // n_store) % 12
+        cat, cat_dict = self.codes("item", "i_category")
+        cls, cls_dict = self.codes("item", "i_class")
+        brand, brand_dict = self.codes("item", "i_brand")
+        pname = self.col("item", "i_product_name")
+        store_id = self.col("store", "s_store_id")
+
+        def keys(j, n):
+            """The 8 rollup keys of finest group j, the last 8 - n NULL."""
+            it, m = f_item[j], f_month[j]
+            full = (str(cat_dict[cat[it]]), str(cls_dict[cls[it]]),
+                    str(brand_dict[brand[it]]), str(pname[it]),
+                    int(m_year[m]), int(m_qoy[m]), int(m_moy[m]),
+                    str(store_id[fine[j] % n_store]))
+            return full[:n] + (None,) * (8 - n)
+
+        # per level: (finest group standing for each group, category code
+        # of each group, sums); the category of the grand total is -1
+        levels = {8: (np.arange(len(fine)), cat[f_item], fsum)}
+        for n, key in ((7, fine // n_store), (6, f_item * 12 + m_yq[f_month]),
+                       (5, f_item * 12 + m_y[f_month]), (4, f_item)):
+            starts = _runs(key)
+            levels[n] = (starts, cat[f_item[starts]],
+                         np.add.reduceat(fsum, starts))
+        it_rep, it_sum = levels[4][0], levels[4][2]
+        attrs = (cat[f_item[it_rep]], cls[f_item[it_rep]],
+                 brand[f_item[it_rep]])
+        radix = (len(cat_dict), len(cls_dict), len(brand_dict))
+        for n in (3, 2, 1):
+            comp = np.zeros(len(it_rep), np.int64)
+            for a, r in zip(attrs[:n], radix):
+                comp = comp * r + a
+            _, first_of, inv2 = np.unique(comp, return_index=True,
+                                          return_inverse=True)
+            inv2 = inv2.reshape(-1)
+            rep = it_rep[first_of]
+            levels[n] = (rep, cat[f_item[rep]],
+                         _exact_sums(inv2, it_sum, len(first_of)))
+        levels[0] = (np.zeros(1, np.int64), np.array([-1]),
+                     np.array([int(fsum.sum())]))
+        # rank within each category (the grand total alone in the NULL
+        # category's partition): rank <= 100 iff the sum is at least the
+        # partition's 100th largest
+        out = []
+        for c in range(-1, len(cat_dict)):
+            vals = np.concatenate([tot[cats == c]
+                                   for _, cats, tot in levels.values()])
+            if not len(vals):
+                continue
+            cut = np.partition(vals, max(len(vals) - 100, 0))[
+                max(len(vals) - 100, 0)]
+            top = np.sort(vals[vals >= cut])
+            for n, (rep, cats, tot) in levels.items():
+                for j in np.flatnonzero((cats == c) & (tot >= cut)):
+                    rank = 1 + len(top) - int(np.searchsorted(
+                        top, tot[j], side="right"))
+                    out.append(keys(rep[j], n) + (int(tot[j]), rank))
+        return sorted(out, key=WINDOW_ORDER["q67"])
 
     def q9(self) -> list:
         if not (self.col("reason", "r_reason_sk") == 1).any():
@@ -760,31 +1103,57 @@ def engine_rows(table, nulls: bool = False) -> list:
     return list(zip(*cols))
 
 
-def compare(want_all: list, got: list, spec) -> None:
-    """Rows above a tie that crosses the LIMIT cut in order; tied rows of
-    one ORDER BY key as a set (the last group: a subset of the ties)."""
-    want = want_all[:LIMIT]
+def compare(want_all: list, got: list, key, limit=LIMIT) -> None:
+    """``got`` against the reference's rows ``want_all`` (all of them, in
+    the query's order, which ``key`` gives), cut at ``limit`` (None: no
+    LIMIT): rows in order; tied rows of one ORDER BY key as a set, the
+    last group a subset of all the ties (the cut may split them).  Values
+    within ``rows_match``'s tolerance."""
+    want = want_all[:limit] if limit is not None else want_all
     if len(got) != len(want):
         raise AssertionError(f"{len(got)} rows, reference {len(want)}")
     i = 0
     while i < len(want):
-        k = order_key(want[i], spec)
+        k = key(want[i])
         j = i
-        while j < len(want) and order_key(want[j], spec) == k:
+        while j < len(want) and key(want[j]) == k:
             j += 1
         part = got[i:j]
-        if any(order_key(r, spec) != k for r in part):
+        if not all(rows_match([k], [key(r)]) for r in part):
             raise AssertionError(f"row {i}: order keys differ: "
                                  f"{part[:3]} vs {want[i:j][:3]}")
-        if j == len(want):
-            ties = {r for r in want_all if order_key(r, spec) == k}
-            ok = set(part) <= ties and len(set(part)) == len(part)
+        if j == len(want) and j < len(want_all):
+            ties = [r for r in want_all if key(r) == k]
+            ok = len(set(part)) == len(part) and all(
+                any(rows_match([t], [r]) for t in ties) for r in part)
         else:
-            ok = sorted(part) == sorted(want[i:j])
+            ok = rows_match(sorted(want[i:j], key=_null_first),
+                            sorted(part, key=_null_first))
         if not ok:
             raise AssertionError(f"rows {i}..{j}: {part[:3]} vs "
                                  f"{want[i:j][:3]}")
         i = j
+
+
+def descale_check(seed: int, n: int = 1 << 22) -> None:
+    """The engine's decimal(12, 2) -> float64 cast on the card against
+    numpy's IEEE quotient, bit for bit."""
+    from ndstpu_torch.engine import torchexec
+    from ndstpu_torch.engine.columnar import FLOAT64, decimal
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    cents = torch.randint(-10**11, 10**11, (n,), generator=gen,
+                          device="cuda")
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+    c = torchexec.DCol(cents, ones, decimal(12, 2))
+    got = torchexec.JEval(torchexec.DTable({"x": c}, ones)).cast(
+        c, FLOAT64).data.cpu().numpy()
+    want = cents.cpu().numpy().astype(np.float64) / 100
+    wrong = int((got != want).sum())
+    say("descale", n=n, mismatches=wrong)
+    if wrong:
+        raise AssertionError(f"decimal descale: {wrong} of {n} quotients "
+                             f"differ from the IEEE quotient")
 
 
 # ---------------------------------------------------------------------------
@@ -892,7 +1261,8 @@ def main() -> int:
     segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
     for q, sql in QUERIES.items():
         got, rec = run_query(q, sql)
-        compare(ref.answer(REFERENCE[q]), got, REFERENCE[q])
+        compare(ref.answer(REFERENCE[q]), got,
+                lambda r, spec=REFERENCE[q]: order_key(r, spec))
         say("slice", **rec)
         if q == "q42" and not rec["routes_to_kernel"]:
             raise AssertionError("q42 does not route to segsum_decimal")
@@ -937,16 +1307,37 @@ def main() -> int:
     say("store slice", store_name=name, counts=list(got[0]), **rec)
     store_launches = segsum.LAUNCHES
 
+    # main path 4: the store window and rollup reports.  Their ratios and
+    # averages descale decimals to float64, and the reference ranks and
+    # ties the true quotients: the engine's must be the same on the card
+    descale_check(args.seed)
+    t0 = time.time()
+    want = {q: getattr(sref, q)() for q in WINDOW_QUERIES}
+    say("window reference", seconds=time.time() - t0,
+        rows={q: len(w) for q, w in want.items()})
+    del sref
+    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    for q, sql in WINDOW_QUERIES.items():
+        got, rec = run_query(q, sql, nulls=True)
+        compare(want[q], got, WINDOW_ORDER[q],
+                limit=None if q == "q98" else LIMIT)
+        say("window slice", **rec)
+        if q == "q36" and rec["kernel_launches"] == 0:
+            raise AssertionError("q36's rollup launched no segsum_decimal")
+    window_launches = segsum.LAUNCHES
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "segsum_decimal", "route": "cuda",
         "source": "ndstpu_torch/ops/csrc/segsum_decimal.cu",
         "replaces": "ndstpu/ops/segsum.py:141",
         "tpu_kernel": "ndstpu/ops/segsum.py::_limb_kernel",
-        "launches": family_launches + bench_launches[0] + store_launches,
+        "launches": family_launches + bench_launches[0] + store_launches +
+        window_launches,
         "launches_by_path": {"q3 family": family_launches,
                              "bench": bench_launches[0],
-                             "store slice": store_launches},
+                             "store slice": store_launches,
+                             "store window reports": window_launches},
         "max_abs_err": k["max_abs_err"],
         "ms": k["call_ms"], "kernel_ms": k["call_ms"],
         "device_ms": k["device_ms"],

@@ -11,18 +11,24 @@ C++ generator (``ndstpu/datagen/ndsgen.cpp``):
   uniform, Zipf ``ss_item_sk`` and ``ss_customer_sk`` (3% NULL) with the
   coprime scatter, uniform ``ss_hdemo_sk`` and ``ss_store_sk`` (2% NULL),
   ``ss_ticket_number = row / 3 + 1``, and the cent arithmetic of
-  ``sales``, ``ext_discount`` and ``net_paid`` (15% of sales carry a
-  coupon of up to half the extended price);
+  ``sales``, ``ext_discount``, ``net_paid`` (15% of sales carry a
+  coupon of up to half the extended price) and ``net_profit`` (net paid
+  less the extended wholesale cost);
 * ``return_parent_row`` / ``gen_return``: return ``j`` is sale
   ``(j * stride) mod n``, whose item and ticket it carries, with a return
   quantity uniform up to the sale's and a uniform reason;
 * ``gen_item``: weighted category and class (``dists.json`` weights), the
   ``brand_id = (cat+1)*10^6 + (cls+1)*10^3 + brand`` encoding, ``i_brand``
-  strings, ``i_manufact_id`` 1..1000, ``i_manager_id`` 1..100;
+  and ``i_class`` strings, ``i_manufact_id`` 1..1000, ``i_manager_id``
+  1..100, ``i_item_id`` the business key, ``i_item_desc`` a sentence of
+  5..20 words of the word pool, ``i_current_price`` 1.00..100.00 and
+  ``i_product_name`` a color and the surrogate key;
 * ``gen_date_dim``: the calendar from 1900-01-02, 73,049 days, with the
-  day names;
-* ``gen_store``, ``gen_reason``, ``gen_household_demographics`` and
-  ``gen_time_dim``.
+  date, quarter, month sequence (months since January 1900) and day
+  names;
+* ``gen_store`` (weighted ``s_state`` from ``store_states``,
+  ``s_company_name`` "Company 1" or "Company 2"), ``gen_reason``,
+  ``gen_household_demographics`` and ``gen_time_dim``.
 
 Only the columns of :data:`COLUMNS` are generated.  The numbers are not
 ndsgen's (the random streams differ); the distributions are.
@@ -95,23 +101,49 @@ _REASONS = (
     "No service location in my area", "Found a better price in a store",
     "Found a better extended warranty") + tuple(
         f"reason {i}" for i in range(15, 36))
+# dists.json "store_states" (values, weights)
+_STORE_STATES = (("TN", "GA", "TX", "CA", "OH", "IL", "NY", "FL"),
+                 (30, 20, 15, 10, 8, 7, 6, 4))
+# ndsgen.cpp kColors (i_product_name's color, picked uniformly)
+_COLORS = (
+    "red", "blue", "green", "yellow", "purple", "orange", "black", "white",
+    "pink", "brown", "gray", "cyan", "magenta", "ivory", "khaki", "lavender",
+    "maroon", "navy", "olive", "salmon", "tan", "teal", "turquoise",
+    "violet", "beige", "azure", "chartreuse", "coral", "crimson", "gold",
+    "silver", "plum", "orchid", "peach", "mint", "rose", "ghost", "snow",
+    "seashell", "linen")
+# ndsgen.cpp kWordPool (the words of sentence())
+_WORDS = (
+    "results", "important", "whole", "right", "general", "great", "special",
+    "large", "social", "economic", "national", "young", "early", "possible",
+    "different", "small", "major", "final", "international", "full",
+    "public", "available", "local", "sure", "low", "necessary", "true",
+    "significant", "recent", "certain", "military", "central", "similar",
+    "main", "individual", "political", "common", "strong", "easy", "clear",
+    "single", "hard", "good", "new", "old", "high", "long", "little", "own",
+    "other")
+_DESC_WORDS = (5, 20)
 # dists.json "buy_potential"
 _BUY_POTENTIAL = ("0-500", "501-1000", "1001-5000", "5001-10000", ">10000",
                   "Unknown")
 
 # the generated columns, per table
 COLUMNS = {
-    "date_dim": ("d_date_sk", "d_year", "d_moy", "d_day_name"),
-    "item": ("i_item_sk", "i_brand_id", "i_brand", "i_category_id",
-             "i_category", "i_manufact_id", "i_manager_id"),
+    "date_dim": ("d_date_sk", "d_date", "d_month_seq", "d_year", "d_moy",
+                 "d_qoy", "d_day_name"),
+    "item": ("i_item_sk", "i_item_id", "i_item_desc", "i_current_price",
+             "i_brand_id", "i_brand", "i_class", "i_category_id",
+             "i_category", "i_manufact_id", "i_manager_id",
+             "i_product_name"),
     "store_sales": ("ss_sold_date_sk", "ss_sold_time_sk", "ss_item_sk",
                     "ss_customer_sk", "ss_hdemo_sk", "ss_store_sk",
                     "ss_ticket_number", "ss_quantity", "ss_sales_price",
                     "ss_ext_discount_amt", "ss_ext_sales_price",
-                    "ss_net_paid"),
+                    "ss_net_paid", "ss_net_profit"),
     "store_returns": ("sr_item_sk", "sr_reason_sk", "sr_ticket_number",
                       "sr_return_quantity"),
-    "store": ("s_store_sk", "s_store_id", "s_store_name", "s_gmt_offset"),
+    "store": ("s_store_sk", "s_store_id", "s_store_name", "s_company_name",
+              "s_state", "s_gmt_offset"),
     "reason": ("r_reason_sk", "r_reason_id", "r_reason_desc"),
     "household_demographics": ("hd_demo_sk", "hd_income_band_sk",
                                "hd_buy_potential", "hd_dep_count",
@@ -201,12 +233,13 @@ def _zipf(n_keys: int, n: int, gen, device) -> torch.Tensor:
 
 def _string_column(values, idx: torch.Tensor
                    ) -> Tuple[torch.Tensor, np.ndarray]:
-    """Dictionary-code ``values[idx]`` against the sorted dictionary."""
-    dictionary = np.array(sorted(values), dtype=object)
-    pos = {v: i for i, v in enumerate(dictionary)}
-    code_of = torch.tensor([pos[v] for v in values], dtype=torch.int32,
-                           device=idx.device)
-    return code_of[idx], dictionary
+    """Dictionary-code ``values[idx]`` against the sorted dictionary of
+    the distinct values."""
+    dictionary, code_of = np.unique(np.asarray(values, dtype=object),
+                                    return_inverse=True)
+    code_of = torch.as_tensor(code_of.reshape(-1).astype(np.int32)).to(
+        idx.device)
+    return code_of[idx], dictionary.astype(object)
 
 
 def _date_dim(device) -> Table:
@@ -214,13 +247,19 @@ def _date_dim(device) -> Table:
                       device=device) + _DATE_DIM_FIRST_JD
     days70 = jd - _JD_EPOCH_1970
     y, m, _ = civil_from_days(days70)
+    y, m = y.to(torch.int64), m.to(torch.int64)
     dow = torch.remainder(days70 + 4, 7)       # 0 = Sunday
     day_codes, day_dict = _string_column(_DAY_NAMES, dow)
     return Table({
         "d_date_sk": Column(jd.to(torch.int32),
                             _ctype("date_dim", "d_date_sk")),
-        "d_year": Column(y.to(torch.int64), _ctype("date_dim", "d_year")),
-        "d_moy": Column(m.to(torch.int64), _ctype("date_dim", "d_moy")),
+        "d_date": Column(days70.to(torch.int32), _ctype("date_dim",
+                                                        "d_date")),
+        "d_month_seq": Column((y - 1900) * 12 + m - 1,
+                              _ctype("date_dim", "d_month_seq")),
+        "d_year": Column(y, _ctype("date_dim", "d_year")),
+        "d_moy": Column(m, _ctype("date_dim", "d_moy")),
+        "d_qoy": Column((m - 1) // 3 + 1, _ctype("date_dim", "d_qoy")),
         "d_day_name": Column(day_codes, _ctype("date_dim", "d_day_name"),
                              None, day_dict),
     })
@@ -270,6 +309,10 @@ def _store(n: int, gen, device) -> Table:
     gmt = torch.tensor(_STORE_GMT[0], dtype=torch.int64, device=device)[
         _weighted_pick(_STORE_GMT[1], n, gen, device)]
     id_codes, id_dict = _keyed_strings(n, bkey, device)
+    company_codes, company_dict = _string_column(
+        ("Company 1", "Company 2"), _uniform_int(0, 1, n, gen, device))
+    state_codes, state_dict = _string_column(
+        _STORE_STATES[0], _weighted_pick(_STORE_STATES[1], n, gen, device))
     ct = lambda c: _ctype("store", c)  # noqa: E731
     return Table({
         "s_store_sk": Column(torch.arange(1, n + 1, dtype=torch.int32,
@@ -277,6 +320,9 @@ def _store(n: int, gen, device) -> Table:
         "s_store_id": Column(id_codes, ct("s_store_id"), None, id_dict),
         "s_store_name": Column(name_codes, ct("s_store_name"), None,
                                name_dict),
+        "s_company_name": Column(company_codes, ct("s_company_name"), None,
+                                 company_dict),
+        "s_state": Column(state_codes, ct("s_state"), None, state_dict),
         "s_gmt_offset": Column(gmt * 100, ct("s_gmt_offset")),
     })
 
@@ -306,17 +352,41 @@ def _item(n: int, gen, device) -> Table:
     brand_codes, brand_dict = _string_column(
         brand_names, cls * _BRANDS_PER_CLASS + brand - 1)
     cat_codes, cat_dict = _string_column(_CATEGORIES, cat)
+    class_codes, class_dict = _string_column(_CLASSES, cls)
+    price = _uniform_int(100, 10000, n, gen, device)
+    id_codes, id_dict = _keyed_strings(n, bkey, device)
+    # descriptions: 5..20 words of the pool, joined on the host (strings
+    # live in host dictionaries)
+    lo, hi = _DESC_WORDS
+    n_words = _uniform_int(lo, hi, n, gen, device).cpu().numpy()
+    words = _uniform_int(0, len(_WORDS) - 1, n * hi, gen,
+                         device).view(n, hi).cpu().numpy()
+    every = torch.arange(n, device=device)
+    desc_codes, desc_dict = _string_column(
+        [" ".join(_WORDS[w] for w in row[:k])
+         for row, k in zip(words.tolist(), n_words.tolist())], every)
+    color = _uniform_int(0, len(_COLORS) - 1, n, gen, device).cpu().numpy()
+    name_codes, name_dict = _string_column(
+        [f"{_COLORS[c]}{sk}" for sk, c in enumerate(color.tolist(), 1)],
+        every)
     ct = lambda c: _ctype("item", c)  # noqa: E731
     return Table({
         "i_item_sk": Column(torch.arange(1, n + 1, dtype=torch.int32,
                                          device=device), ct("i_item_sk")),
+        "i_item_id": Column(id_codes, ct("i_item_id"), None, id_dict),
+        "i_item_desc": Column(desc_codes, ct("i_item_desc"), None,
+                              desc_dict),
+        "i_current_price": Column(price, ct("i_current_price")),
         "i_brand_id": Column((cat + 1) * 1000000 + (cls + 1) * 1000 + brand,
                              ct("i_brand_id")),
         "i_brand": Column(brand_codes, ct("i_brand"), None, brand_dict),
+        "i_class": Column(class_codes, ct("i_class"), None, class_dict),
         "i_category_id": Column(cat + 1, ct("i_category_id")),
         "i_category": Column(cat_codes, ct("i_category"), None, cat_dict),
         "i_manufact_id": Column(manufact, ct("i_manufact_id")),
         "i_manager_id": Column(manager, ct("i_manager_id")),
+        "i_product_name": Column(name_codes, ct("i_product_name"), None,
+                                 name_dict),
     })
 
 
@@ -326,8 +396,8 @@ def _store_sales(n: int, sz: Dict[str, int], gen, device) -> Table:
     date_sk, time_sk, item_sk, cust_sk, hdemo_sk, store_sk = (
         empty(torch.int32) for _ in range(6))
     date_ok, cust_ok, store_ok = (empty(torch.bool) for _ in range(3))
-    quantity, sales_price, ext_discount, ext_sales, net_paid = (
-        empty(torch.int64) for _ in range(5))
+    quantity, sales_price, ext_discount, ext_sales, net_paid, net_profit = (
+        empty(torch.int64) for _ in range(6))
     # Nov 1 of each sales year, as a Julian day (holiday-season skew)
     years = range(1998, 2004)
     nov1 = torch.tensor([_days_from_civil(y, 11, 1) + _JD_EPOCH_1970
@@ -369,6 +439,7 @@ def _store_sales(n: int, sz: Dict[str, int], gen, device) -> Table:
         ext_discount[b:e] = q * lst - ext
         ext_sales[b:e] = ext
         net_paid[b:e] = ext - coupon
+        net_profit[b:e] = ext - coupon - q * wholesale
     ticket = torch.arange(n, dtype=torch.int64, device=device) // \
         _TICKET_SPREAD + 1
     ct = lambda c: _ctype("store_sales", c)  # noqa: E731
@@ -386,6 +457,7 @@ def _store_sales(n: int, sz: Dict[str, int], gen, device) -> Table:
                                       ct("ss_ext_discount_amt")),
         "ss_ext_sales_price": Column(ext_sales, ct("ss_ext_sales_price")),
         "ss_net_paid": Column(net_paid, ct("ss_net_paid")),
+        "ss_net_profit": Column(net_profit, ct("ss_net_profit")),
     })
 
 

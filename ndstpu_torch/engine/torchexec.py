@@ -10,15 +10,18 @@ Design, kept from jaxexec:
 
 * **Alive mask.**  A table is a set of columns plus a boolean ``alive``
   vector.  Filters only AND the mask; compaction happens at the few points
-  that need it (LIMIT), and data-dependent output sizes (join fan-out)
-  sync one scalar to the host.  jaxexec pads every table to a power-of-two
-  size class so XLA retraces per class, not per row count; eager PyTorch
-  does not retrace, so the port sizes tables exactly (at least one row).
+  that need it (LIMIT, a window's input, each grouping set's groups), and
+  data-dependent output sizes (join fan-out) sync one scalar to the host.
+  jaxexec pads every table to a power-of-two size class so XLA retraces
+  per class, not per row count; eager PyTorch does not retrace, so the
+  port sizes tables exactly (at least one row).
   Padding comes back with the CUDA-graph replay slice, where captured
   shapes must be static.
 * **Sort-based relational operators.**  Group-by = lexicographic stable
   sort → adjacent-difference dense group ids → segment reductions (exact
   int64 for decimals), or linearized ids over a small static key domain.
+  Grouping sets aggregate the finest grain once and re-aggregate each set
+  from it; windows sort by (partition, order keys) and scan.
   Equi-join = mixed-radix composite key → direct-addressed lookup table
   (or one sort of both sides) → ragged expansion.
 * **Strings never touch the device.**  String columns are int32 codes into
@@ -36,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import re
 import warnings
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,6 +76,10 @@ SUPPORTED_AGG_FUNCS = frozenset({
     "stddev_samp", "var_samp", "stddev", "variance",
 })
 DISTINCT_AGG_FUNCS = frozenset({"sum", "count", "avg", "min", "max"})
+# aggregates whose grouping-set partials re-combine into coarser groups in
+# one pass (lowering.py GS_COMBINABLE_AGGS); the others run one full pass
+# per set
+GS_COMBINABLE_AGGS = frozenset({"count", "sum", "avg", "min", "max"})
 
 # group-by strategy: "sort" = lexsort dense ids only; "auto" = linearized
 # ids when the key domain is small (no sort); "kernel" = auto + the exact
@@ -341,13 +349,51 @@ def to_host(dt: DTable) -> Table:
     return Table(cols)
 
 
+def _any_none(xs) -> bool:
+    return any(x is None for x in xs)
+
+
+def _plan_fp(o, out: Optional[list] = None) -> Optional[str]:
+    """Structural fingerprint of a plan/expression tree
+    (jaxexec._plan_fp).  Unlike ``repr`` it covers every dataclass field
+    (Literal's repr hides its ctype).  The port uses it only to key
+    aggregate leaves within one plan, so an inline table is keyed by the
+    identity of its table, which lives as long as the plan."""
+    top = out is None
+    if top:
+        out = []
+    if isinstance(o, lp.InlineTable):
+        out.append(f"IT{id(o.table)}")
+    elif dataclasses.is_dataclass(o) and not isinstance(o, type):
+        out.append(type(o).__name__)
+        out.append("(")
+        for f in dataclasses.fields(o):
+            _plan_fp(getattr(o, f.name), out)
+            out.append(",")
+        out.append(")")
+    elif isinstance(o, (list, tuple)):
+        out.append("[")
+        for x in o:
+            _plan_fp(x, out)
+            out.append(",")
+        out.append("]")
+    elif isinstance(o, np.ndarray):
+        # repr() elides long arrays ("...") — fingerprint the bytes
+        out.append(f"ND{o.dtype}{o.shape}{zlib.crc32(o.tobytes())}")
+    else:
+        out.append(repr(o))
+    if top:
+        return "".join(out)
+    return None
+
+
 class Unsupported(Exception):
     """Raised when an expr/plan node has no port yet.
 
     ``code`` is the static-analyzer diagnostic (NDS2xx, see
     ndstpu/analysis/diagnostics.py) jaxexec raises at the same place;
     nodes jaxexec runs but the port does not yet stay uncoded.  ``node``
-    names the plan node that refused (``"SetOp"``, ``"Window"``, ...):
+    names the plan node that refused (``"SetOp"``, ``"Distinct"``, ...):
     :meth:`TorchExecutor.execute` sets it on the way out when the raise
     site did not."""
 
@@ -513,7 +559,8 @@ class JEval:
                         bounds=c.bounds)
         if tk == "float64":
             if k == "decimal":
-                data = c.data.to(torch.float64) / (10 ** c.ctype.scale)
+                data = _true_div(c.data.to(torch.float64),
+                                 10 ** c.ctype.scale)
             elif k == "string":
                 data, valid = self._string_parse_float(c)
                 return DCol(data, valid, FLOAT64)
@@ -563,8 +610,8 @@ class JEval:
             dt = torch.int64 if tk == "int64" else torch.int32
             bounds = None
             if k == "decimal":
-                data = torch.trunc(
-                    c.data.to(torch.float64) / (10 ** c.ctype.scale)).to(dt)
+                data = torch.trunc(_true_div(c.data.to(torch.float64),
+                                             10 ** c.ctype.scale)).to(dt)
                 if c.bounds is not None and \
                         max(abs(c.bounds[0]), abs(c.bounds[1])) < (1 << 53):
                     # the data path divides in float64; below 2^53 the
@@ -963,7 +1010,8 @@ class JEval:
                 return self.cast(c, decimal(c.ctype.precision, nd))
             m = 10.0 ** nd
             x = c.data.to(torch.float64)
-            data = torch.floor(torch.abs(x) * m + 0.5) / m * torch.sign(x)
+            data = _true_div(torch.floor(torch.abs(x) * m + 0.5), m) * \
+                torch.sign(x)
             return DCol(data, c.valid, FLOAT64)
         if name in ("floor", "ceil", "sqrt"):
             c = self.cast(self.eval(e.args[0]), FLOAT64)
@@ -1044,16 +1092,33 @@ def _minmax_vals(data: torch.Tensor, valid: torch.Tensor, kind: str,
     return data.masked_fill(~valid, info.max if is_min else info.min)
 
 
+def _true_div(x: torch.Tensor, d) -> torch.Tensor:
+    """``x / d`` for a float64 ``x`` and a Python number ``d``, as an IEEE
+    division on every device.  PyTorch multiplies a CUDA tensor by the
+    reciprocal of a Python-number divisor, which can differ from the
+    quotient in the last bit, and so break a tie or a rank that the
+    reference (and the CPU) compute on true quotients."""
+    return x / torch.full((), float(d), dtype=x.dtype, device=x.device)
+
+
+def _sum_input(data: torch.Tensor, valid: torch.Tensor,
+               kind: str) -> torch.Tensor:
+    """Summation input, 0 where invalid: exact int64 for decimal/int
+    kinds, float64 otherwise (jaxexec._sum_input)."""
+    if kind in ("decimal", "int32", "int64"):
+        return data.to(torch.int64).masked_fill(~valid, 0)
+    return data.to(torch.float64).masked_fill(~valid, 0.0)
+
+
 def _typed_sum(data: torch.Tensor, valid: torch.Tensor, kind: str,
                gid: torch.Tensor, ngseg: int) -> torch.Tensor:
     """Per-segment sums of the valid rows: decimal/int sums stay exact
     int64, float sums are native float64 (:mod:`ndstpu_torch.engine.fp64`,
     jaxexec's compensated f32-pair scan)."""
+    x = _sum_input(data, valid, kind)
     if kind in ("decimal", "int32", "int64"):
-        return _segment_sum(data.to(torch.int64).masked_fill(~valid, 0),
-                            gid, ngseg)
-    return fp64.segment_sum_compensated(
-        data.to(torch.float64).masked_fill(~valid, 0.0), gid, ngseg)
+        return _segment_sum(x, gid, ngseg)
+    return fp64.segment_sum_compensated(x, gid, ngseg)
 
 
 def _key_i64(c: DCol, alive: torch.Tensor,
@@ -1210,9 +1275,8 @@ class TorchExecutor:
         node = type(p).__name__
         m = getattr(self, "_exec_" + node.lower(), None)
         if m is None:
-            code = {"Window": "NDS209"}.get(node)
             raise Unsupported(f"plan node {node} is not ported yet",
-                              code=code, node=node)
+                              node=node)
         try:
             return m(p)
         except Unsupported as u:
@@ -1402,10 +1466,120 @@ class TorchExecutor:
     def _exec_aggregate(self, p: lp.Aggregate) -> DTable:
         for _, e in p.aggs:
             self._check_agg_supported(e)
-        if p.grouping_sets is not None:
-            raise Unsupported("grouping sets are not ported yet",
-                              code="NDS214")
-        return self._aggregate_once(self.execute(p.child), p)
+        dt = self.execute(p.child)
+        if p.grouping_sets is None:
+            return self._aggregate_once(dt, p, None)
+        parts = self._grouping_sets_partials(dt, p)
+        if parts is None:
+            # aggregates that do not recombine (stddev, ...): one full
+            # pass over the child per set
+            parts = [self._aggregate_once(dt, p, subset)
+                     for subset in p.grouping_sets]
+        # each set's groups compacted before the concatenation: a set's
+        # table has the capacity of its input, and a rollup of n keys
+        # would otherwise stack n + 1 of them
+        parts = [self.compact(t) for t in parts]
+        cols: Dict[str, DCol] = {}
+        for n in parts[0].column_names:
+            cs = [t.columns[n] for t in parts]
+            bounds = None
+            if all(c.bounds is not None for c in cs):
+                bounds = (min(c.bounds[0] for c in cs),
+                          max(c.bounds[1] for c in cs))
+            cols[n] = DCol(torch.cat([c.data for c in cs]),
+                           torch.cat([c.valid for c in cs]),
+                           cs[0].ctype, cs[0].dictionary, bounds)
+        return DTable(cols, torch.cat([t.alive for t in parts]))
+
+    def _grouping_sets_partials(self, dt: DTable,
+                                p: lp.Aggregate) -> Optional[list]:
+        """Grouping sets via decomposable partials
+        (jaxexec._grouping_sets_partials): ONE finest-grain aggregation
+        over the child, compacted, then each set re-aggregated from that
+        partial table.  Returns None when an aggregate does not recombine
+        (distinct, stddev) or an aggregate expression holds a node the
+        rewrite cannot walk; the caller then runs one pass per set.
+
+        Leaves are keyed by :func:`_plan_fp`, not ``repr``: two aggregates
+        differing only in a literal's type must not share a partial.  The
+        two-stage sum reorders float64 summation against the one-pass
+        path, within the 1e-5 relative tolerance floats are held to."""
+        leaves: Dict[str, ex.AggExpr] = {}
+        for _name, e in p.aggs:
+            for node in e.walk():
+                if isinstance(node, ex.AggExpr):
+                    if node.distinct or node.func not in GS_COMBINABLE_AGGS:
+                        return None
+                    leaves.setdefault(_plan_fp(node), node)
+        # finest-grain partials: sum + count for sum/avg, the function
+        # itself for count/min/max (counts recombine by sum, min/max by
+        # min/max; a sum of sums is NULL iff no row was valid, because a
+        # finest partial with no valid row is itself NULL)
+        fine_aggs: List[tuple] = []
+        combine: Dict[str, ex.Expr] = {}
+        for i, (rkey, a) in enumerate(leaves.items()):
+            if a.func in ("sum", "avg"):
+                sname = f"__gs{i}s"
+                fine_aggs.append((sname, ex.AggExpr("sum", a.arg)))
+                if a.func == "sum":
+                    combine[rkey] = ex.AggExpr("sum", ex.ColumnRef(sname))
+                else:
+                    cname = f"__gs{i}c"
+                    fine_aggs.append((cname, ex.AggExpr("count", a.arg)))
+                    # avg = total sum / total count; the cast descales a
+                    # decimal exactly as _agg_column's avg does
+                    combine[rkey] = ex.BinOp(
+                        "/",
+                        ex.Cast(ex.AggExpr("sum", ex.ColumnRef(sname)),
+                                FLOAT64),
+                        ex.Cast(ex.AggExpr("sum", ex.ColumnRef(cname)),
+                                FLOAT64))
+            elif a.func == "count":
+                cname = f"__gs{i}c"
+                fine_aggs.append((cname, ex.AggExpr("count", a.arg)))
+                combine[rkey] = ex.AggExpr("sum", ex.ColumnRef(cname))
+            else:  # min / max
+                mname = f"__gs{i}m"
+                fine_aggs.append((mname, ex.AggExpr(a.func, a.arg)))
+                combine[rkey] = ex.AggExpr(a.func, ex.ColumnRef(mname))
+
+        def rebuild(node: ex.Expr) -> Optional[ex.Expr]:
+            """``node`` over the partials' columns; None where the
+            rewrite cannot walk it."""
+            if isinstance(node, ex.AggExpr):
+                return combine[_plan_fp(node)]
+            if isinstance(node, ex.Literal) or (
+                    isinstance(node, ex.Func) and node.name == "grouping"):
+                return node     # grouping() is static per set
+            if isinstance(node, ex.BinOp):
+                kids = [rebuild(node.left), rebuild(node.right)]
+                return None if _any_none(kids) else ex.BinOp(node.op, *kids)
+            if isinstance(node, ex.Cast):
+                kid = rebuild(node.operand)
+                return None if kid is None else ex.Cast(kid, node.target)
+            if isinstance(node, ex.Func):
+                kids = [rebuild(x) for x in node.args]
+                return None if _any_none(kids) else ex.Func(node.name,
+                                                            tuple(kids))
+            if isinstance(node, ex.Case):
+                whens = [(rebuild(c), rebuild(v)) for c, v in node.whens]
+                default = rebuild(node.default) \
+                    if node.default is not None else None
+                if _any_none([x for w in whens for x in w]) or (
+                        node.default is not None and default is None):
+                    return None
+                return ex.Case(tuple(whens), default)
+            return None
+
+        set_aggs = [(name, rebuild(e)) for name, e in p.aggs]
+        if _any_none([e for _, e in set_aggs]):
+            return None
+        p_fine = lp.Aggregate(p.child, p.group_by, fine_aggs, None)
+        ft = self.compact(self._aggregate_once(dt, p_fine, None))
+        set_group_by = [(n, ex.ColumnRef(n)) for n, _ in p.group_by]
+        p_set = lp.Aggregate(p.child, set_group_by, set_aggs, None)
+        return [self._aggregate_once(ft, p_set, subset)
+                for subset in p.grouping_sets]
 
     def _check_agg_supported(self, e: ex.Expr):
         for node in e.walk():
@@ -1418,11 +1592,27 @@ class TorchExecutor:
                     raise Unsupported(f"aggregate {node.func}",
                                       code="NDS207")
 
-    def _aggregate_once(self, dt: DTable, p: lp.Aggregate) -> DTable:
+    def _aggregate_once(self, dt: DTable, p: lp.Aggregate,
+                        subset: Optional[List[int]]) -> DTable:
+        """One aggregation of ``dt`` by ``p``'s keys; with ``subset``
+        (one grouping set) the keys outside it are all NULL."""
         evl = JEval(dt)
         cap = dt.capacity
-        key_cols = [(name, evl.eval(self._resolve_subqueries(e)))
-                    for name, e in p.group_by]
+        key_cols = []
+        for i, (name, e) in enumerate(p.group_by):
+            c = evl.eval(self._resolve_subqueries(e))
+            if subset is not None and i not in subset:
+                # rolled up in this set: all NULL, and no bounds, so no
+                # stale bound reaches _direct_group_ids
+                c = DCol(torch.zeros_like(c.data),
+                         torch.zeros(cap, dtype=torch.bool,
+                                     device=self.device),
+                         c.ctype, c.dictionary)
+            key_cols.append((name, c))
+        # grouping(key) resolves against this; passed down, not kept on
+        # the executor, since a subquery resolved mid-loop runs a nested
+        # aggregate of its own
+        grouping_ctx = ([n for n, _ in p.group_by], subset)
         use_kernel = False
         direct = None
         if key_cols and self.groupby_mode in ("auto", "kernel"):
@@ -1459,7 +1649,7 @@ class TorchExecutor:
         for name, e in p.aggs:
             out_cols[name] = self._eval_agg(
                 dt, evl, self._resolve_subqueries(e), gid, ngseg, out_alive,
-                use_kernel)
+                use_kernel, grouping_ctx)
         return DTable(out_cols, out_alive)
 
     def _direct_group_ids(self, key_cols, alive):
@@ -1510,12 +1700,11 @@ class TorchExecutor:
             idx = idx.masked_fill(~c.valid, span)     # NULL slot per key
             gid = gid * (span + 1) + idx
         # dead / bounds-violating rows -> trash slot
-        bad = alive & ~row_ok
-        self.n_syncs += 1
-        if bool(torch.any(bad)):
+        bad = torch.sum(alive & ~row_ok)
+        if self._branch_bool(bad > 0):
             warnings.warn(
                 f"group-by bounds invariant violated: "
-                f"{int(torch.sum(bad))} valid rows fell outside static "
+                f"{int(bad)} valid rows fell outside static "
                 f"key bounds and were dropped (upstream bounds-"
                 f"propagation bug)", stacklevel=2)
         gid = gid.masked_fill(~(alive & row_ok), domain)
@@ -1539,9 +1728,21 @@ class TorchExecutor:
         return gid, ngseg, out_alive, out_cols
 
     def _eval_agg(self, dt: DTable, evl: JEval, e: ex.Expr, gid, ngseg,
-                  out_alive, use_kernel: bool) -> DCol:
+                  out_alive, use_kernel: bool, grouping_ctx) -> DCol:
         if isinstance(e, ex.AggExpr):
             return self._agg_column(dt, evl, e, gid, ngseg, use_kernel)
+        if isinstance(e, ex.Func) and e.name == "grouping":
+            # grouping(key) = 0 when the key takes part in this grouping
+            # set, 1 when it is rolled up (Spark semantics)
+            names, subset = grouping_ctx
+            arg = e.args[0]
+            idx = names.index(arg.name) if isinstance(
+                arg, ex.ColumnRef) and arg.name in names else -1
+            active = subset is None or idx in subset
+            return DCol(torch.full((ngseg,), 0 if active else 1,
+                                   dtype=torch.int32, device=self.device),
+                        torch.ones(ngseg, dtype=torch.bool,
+                                   device=self.device), INT32)
         if isinstance(e, (ex.BinOp, ex.Cast, ex.Func, ex.Case, ex.Literal)):
             # expression over aggregates: evaluate leaves then combine on
             # the group-capacity table
@@ -1554,6 +1755,13 @@ class TorchExecutor:
                     counter[0] += 1
                     sub_cols[name] = self._agg_column(
                         dt, evl, node, gid, ngseg, use_kernel)
+                    return ex.ColumnRef(name)
+                if isinstance(node, ex.Func) and node.name == "grouping":
+                    name = f"__agg{counter[0]}"
+                    counter[0] += 1
+                    sub_cols[name] = self._eval_agg(
+                        dt, evl, node, gid, ngseg, out_alive, use_kernel,
+                        grouping_ctx)
                     return ex.ColumnRef(name)
                 if isinstance(node, ex.BinOp):
                     return ex.BinOp(node.op, lower(node.left),
@@ -1622,7 +1830,7 @@ class TorchExecutor:
                 return DCol(sums, cnts > 0, INT64)
             data = sums.to(torch.float64) / torch.clamp(cnts, min=1)
             if c.ctype.kind == "decimal":
-                data = data / (10 ** c.ctype.scale)
+                data = _true_div(data, 10 ** c.ctype.scale)
             return DCol(data, cnts > 0, FLOAT64)
         if func == "count":
             counts = _segment_sum(valid.to(torch.int32), gid, ngseg)
@@ -1640,7 +1848,7 @@ class TorchExecutor:
             sums = _typed_sum(c.data, valid, c.ctype.kind, gid, ngseg)
             data = sums.to(torch.float64) / torch.clamp(cnts, min=1)
             if c.ctype.kind == "decimal":
-                data = data / (10 ** c.ctype.scale)
+                data = _true_div(data, 10 ** c.ctype.scale)
             return DCol(data, cnts > 0, FLOAT64)
         if func in ("min", "max"):
             got = _segment_sum(valid.to(torch.int32), gid, ngseg) > 0
@@ -1681,6 +1889,207 @@ class TorchExecutor:
                 torch.sqrt(var)
             return DCol(data, ok, FLOAT64)
         raise Unsupported(f"aggregate {func}", code="NDS207")
+
+    # -- window --------------------------------------------------------------
+
+    def _exec_window(self, p: lp.Window) -> DTable:
+        # compacted first (one counted sync): the window's sorts, and every
+        # operator above it, then see only live rows.  An aggregate's table
+        # has the capacity of its input, so a window over an aggregate
+        # would otherwise carry the fact table's capacity into a self-join
+        # (q47), past the rank pairing's capacity bound
+        dt = self.compact(self.execute(p.child))
+        out = dict(dt.columns)
+        for name, e in p.exprs:
+            if not isinstance(e, ex.WindowExpr):
+                raise Unsupported("non-window expr in Window node",
+                                  code="NDS209")
+            out[name] = self._window_column(dt, e)
+        return DTable(out, dt.alive)
+
+    def _window_sort(self, pid: torch.Tensor, okeys: List[torch.Tensor]):
+        """Rows sorted by (partition, order keys): (order, its inverse,
+        sorted positions, the start of each sorted row's partition,
+        partition-start flags).  Positions are int64."""
+        cap = int(pid.shape[0])
+        idx = _iota(cap, self.device, torch.int64)
+        order = _lexsort_order([pid] + okeys)
+        inv = _inv_permute(order, idx)
+        pid_s = pid[order]
+        newpart = torch.ones(cap, dtype=torch.bool, device=self.device)
+        newpart[1:] = pid_s[1:] != pid_s[:-1]
+        pstart = torch.cummax(torch.where(newpart, idx, 0), 0).values
+        return order, inv, idx, pstart, newpart
+
+    @staticmethod
+    def _ties(order, okeys: List[torch.Tensor], newpart) -> torch.Tensor:
+        """Sorted rows equal to the row before on every order key, within
+        one partition."""
+        t = torch.ones(order.shape[0] - 1, dtype=torch.bool,
+                       device=order.device)
+        for k in okeys:
+            ks = k[order]
+            t = t & (ks[1:] == ks[:-1])
+        tie = torch.zeros_like(newpart)
+        tie[1:] = t & ~newpart[1:]
+        return tie
+
+    def _window_column(self, dt: DTable, w: ex.WindowExpr) -> DCol:
+        """One window function (jaxexec._window_column): ranks by a sort
+        on (partition, order keys); aggregates over the whole partition
+        by segment reductions on the partition id, or, with ORDER BY, a
+        running frame (:meth:`_running_window`)."""
+        cap = dt.capacity
+        evl = JEval(dt)
+        if w.partition_by:
+            pcols = [evl.eval(self._resolve_subqueries(e))
+                     for e in w.partition_by]
+            pkeys = [_key_col(c, dt.alive) for c in pcols]
+        else:
+            pkeys = [torch.where(dt.alive, 0, 1).to(torch.int32)]
+        pid, _, _ = _group_ids(pkeys)
+        okeys = []
+        for e, asc in w.order_by:
+            c = evl.eval(self._resolve_subqueries(e))
+            okeys.append(self._order_key(evl, c, asc, None))
+        ones = torch.ones(cap, dtype=torch.bool, device=self.device)
+        if w.func in ("row_number", "rank", "dense_rank"):
+            order, inv, idx, pstart, newpart = self._window_sort(pid, okeys)
+            pos_in_part = idx - pstart
+            if w.func == "row_number":
+                return DCol((pos_in_part + 1)[inv], ones, INT64)
+            tie = self._ties(order, okeys, newpart)
+            if w.func == "rank":
+                last_nontie = torch.cummax(torch.where(~tie, idx, 0),
+                                           0).values
+                ranks = pos_in_part[last_nontie] + 1
+            else:
+                incr = torch.where(newpart, 0, (~tie).to(torch.int64))
+                csum = torch.cumsum(incr, 0)
+                base = torch.cummax(torch.where(newpart, csum, 0), 0).values
+                ranks = csum - base + 1
+            return DCol(ranks[inv], ones, INT64)
+        # aggregate window: the whole partition without ORDER BY; with
+        # ORDER BY an UNBOUNDED PRECEDING..CURRENT ROW frame (Spark's
+        # default RANGE: peers share the run's value; ROWS: per row)
+        if w.order_by:
+            return self._running_window(dt, evl, w, pid, okeys)
+        if w.func == "count" and (w.arg is None or
+                                  isinstance(w.arg, ex.Star)):
+            cnt = _segment_sum(dt.alive.to(torch.int64), pid, cap)
+            return DCol(cnt[pid], ones, INT64)
+        arg = evl.eval(self._resolve_subqueries(w.arg))
+        valid = arg.valid & dt.alive
+        cnts = _segment_sum(valid.to(torch.int64), pid, cap)
+        got = (cnts > 0)[pid]
+        kind = arg.ctype.kind
+        if w.func == "count":
+            return DCol(cnts[pid], ones, INT64)
+        if w.func == "sum":
+            tot = _segment_sum(_sum_input(arg.data, valid, kind), pid, cap)
+            if kind == "decimal":
+                return DCol(tot[pid], got, decimal(38, arg.ctype.scale))
+            return DCol(tot[pid], got,
+                        INT64 if kind in ("int32", "int64") else FLOAT64)
+        if w.func == "avg":
+            tot = _segment_sum(_sum_input(arg.data, valid, kind), pid, cap)
+            mean = tot.to(torch.float64) / torch.clamp(cnts, min=1)
+            if kind == "decimal":
+                mean = _true_div(mean, 10 ** arg.ctype.scale)
+            return DCol(mean[pid], got, FLOAT64)
+        if w.func in ("min", "max"):
+            is_min = w.func == "min"
+            if kind == "float64":
+                init = float("inf") if is_min else -float("inf")
+                vals = arg.data.masked_fill(~valid, init)
+            else:
+                vals = _minmax_vals(arg.data, valid, kind, is_min)
+                info = torch.iinfo(vals.dtype)
+                init = info.max if is_min else info.min
+            out = torch.full((cap,), init, dtype=vals.dtype,
+                             device=self.device)
+            out.scatter_reduce_(0, pid.long(), vals,
+                                "amin" if is_min else "amax")
+            return DCol(out[pid].to(arg.data.dtype), got, arg.ctype,
+                        arg.dictionary)
+        raise Unsupported(f"window {w.func}", code="NDS209")
+
+    def _running_window(self, dt: DTable, evl: JEval, w: ex.WindowExpr,
+                        pid: torch.Tensor,
+                        okeys: List[torch.Tensor]) -> DCol:
+        """UNBOUNDED PRECEDING..CURRENT ROW running aggregate
+        (jaxexec._running_window): sort by (partition, order keys), a
+        segmented cumulative combine, and under RANGE each row takes the
+        value at the end of its tie run."""
+        cap = dt.capacity
+        order, inv, idx, pstart, newpart = self._window_sort(pid, okeys)
+        if w.frame != "rows":
+            tie = self._ties(order, okeys, newpart)
+            end_marker = torch.ones(cap, dtype=torch.bool,
+                                    device=self.device)
+            end_marker[:-1] = ~tie[1:]
+            # the first run end at or after each row: a reversed cummin
+            run_end = torch.flip(torch.cummin(torch.flip(
+                torch.where(end_marker, idx, cap), [0]), 0).values, [0])
+        else:
+            run_end = idx
+
+        def seg_cumsum(x):
+            cs = torch.cumsum(x, 0)
+            base = torch.where(pstart > 0,
+                               cs[torch.clamp(pstart - 1, min=0)], 0)
+            return cs - base
+
+        ones = torch.ones(cap, dtype=torch.bool, device=self.device)
+        alive_s = dt.alive[order]
+        if w.arg is None or isinstance(w.arg, ex.Star):     # count(*)
+            run = seg_cumsum(alive_s.to(torch.int64))[run_end]
+            return DCol(run[inv], ones, INT64)
+        arg = evl.eval(self._resolve_subqueries(w.arg))
+        kind = arg.ctype.kind
+        valid_s = (arg.valid & dt.alive)[order]
+        data_s = arg.data[order]
+        rcnt = seg_cumsum(valid_s.to(torch.int64))[run_end]
+        got = (rcnt > 0)[inv]
+        if w.func == "count":
+            return DCol(rcnt[inv], ones, INT64)
+        if w.func in ("sum", "avg"):
+            run = seg_cumsum(_sum_input(data_s, valid_s, kind))[run_end]
+            if w.func == "sum":
+                if kind == "decimal":
+                    return DCol(run[inv], got, decimal(38, arg.ctype.scale))
+                return DCol(run[inv], got,
+                            INT64 if kind in ("int32", "int64") else FLOAT64)
+            mean = run.to(torch.float64)
+            if kind == "decimal":
+                mean = _true_div(mean, 10 ** arg.ctype.scale)
+            return DCol((mean / torch.clamp(rcnt, min=1))[inv], got, FLOAT64)
+        if w.func in ("min", "max"):
+            is_min = w.func == "min"
+            opfn = torch.minimum if is_min else torch.maximum
+            if kind == "float64":
+                sent = float("inf") if is_min else -float("inf")
+                x = data_s.masked_fill(~valid_s, sent)
+            else:
+                x = _minmax_vals(data_s, valid_s, kind, is_min)
+                info = torch.iinfo(x.dtype)
+                sent = info.max if is_min else info.min
+            # doubling prefix scan clipped at partition starts: about
+            # log2(cap) passes over the column
+            out = x
+            shift = 1
+            while shift < cap:
+                cand = torch.cat([torch.full((shift,), sent, dtype=out.dtype,
+                                             device=self.device),
+                                  out[:-shift]])
+                take = (idx - shift) >= pstart
+                out = torch.where(take, opfn(out, cand), out)
+                shift *= 2
+            out = out[run_end][inv]
+            if kind != "float64":
+                out = out.to(arg.data.dtype)
+            return DCol(out, got, arg.ctype, arg.dictionary)
+        raise Unsupported(f"running window {w.func}", code="NDS209")
 
     # -- join ----------------------------------------------------------------
 

@@ -2,7 +2,8 @@
 
 Each is an NDS template rendered as ``ndstpu/queries/streamgen.py``
 renders it (rngseed 07291122510, stream 0): the q3 family's star-join
-reports (``QUERIES``) and the store-channel reports (``STORE_QUERIES``).
+reports (``QUERIES``), the store-channel reports (``STORE_QUERIES``) and
+the store-channel rollup and window reports (``WINDOW_QUERIES``).
 ``chip_smoke.py`` and :mod:`ndstpu_torch.profile` run them.
 """
 
@@ -113,4 +114,149 @@ from (select ss_item_sk, ss_ticket_number, ss_customer_sk,
 group by ss_customer_sk
 order by sumsales, ss_customer_sk
 limit 100""",
+}
+
+# rollups with grouping(), ranks and windowed aggregates over aggregates
+WINDOW_QUERIES = {
+    "q36": """select sum(ss_net_profit) / sum(ss_ext_sales_price) as gross_margin,
+       i_category, i_class,
+       grouping(i_category) + grouping(i_class) as lochierarchy,
+       rank() over (partition by grouping(i_category) + grouping(i_class),
+                    case when grouping(i_class) = 0 then i_category end
+                    order by sum(ss_net_profit) / sum(ss_ext_sales_price) asc)
+           as rank_within_parent
+from store_sales, date_dim d1, item, store
+where d1.d_year = 1998
+  and d1.d_date_sk = ss_sold_date_sk
+  and i_item_sk = ss_item_sk
+  and s_store_sk = ss_store_sk
+  and s_state in ('AL', 'GA', 'CA', 'CO', 'FL', 'ID', 'IL', 'IN')
+group by rollup(i_category, i_class)
+order by lochierarchy desc,
+         case when lochierarchy = 0 then i_category end,
+         rank_within_parent
+limit 100""",
+    "q47": """with v1 as(
+ select i_category, i_brand,
+        s_store_name, s_company_name,
+        d_year, d_moy,
+        sum(ss_sales_price) sum_sales,
+        avg(sum(ss_sales_price)) over
+          (partition by i_category, i_brand,
+                     s_store_name, s_company_name, d_year)
+          avg_monthly_sales,
+        rank() over
+          (partition by i_category, i_brand,
+                     s_store_name, s_company_name
+           order by d_year, d_moy) rn
+ from item, store_sales, date_dim, store
+ where ss_item_sk = i_item_sk and
+       ss_sold_date_sk = d_date_sk and
+       ss_store_sk = s_store_sk and
+       (
+         d_year = 2001 or
+         ( d_year = 2001-1 and d_moy =12) or
+         ( d_year = 2001+1 and d_moy =1)
+       )
+ group by i_category, i_brand,
+          s_store_name, s_company_name,
+          d_year, d_moy),
+ v2 as(
+ select v1.i_category, v1.i_brand
+        ,v1.s_store_name, v1.s_company_name
+        ,v1.d_year, v1.d_moy
+        ,v1.avg_monthly_sales
+        ,v1.sum_sales, v1_lag.sum_sales psum, v1_lead.sum_sales nsum
+ from v1, v1 v1_lag, v1 v1_lead
+ where v1.i_category = v1_lag.i_category and
+       v1.i_category = v1_lead.i_category and
+       v1.i_brand = v1_lag.i_brand and
+       v1.i_brand = v1_lead.i_brand and
+       v1.s_store_name = v1_lag.s_store_name and
+       v1.s_store_name = v1_lead.s_store_name and
+       v1.s_company_name = v1_lag.s_company_name and
+       v1.s_company_name = v1_lead.s_company_name and
+       v1.rn = v1_lag.rn + 1 and
+       v1.rn = v1_lead.rn - 1)
+  select  *
+ from v2
+ where  d_year = 2001 and
+        avg_monthly_sales > 0 and
+        case when avg_monthly_sales > 0 then abs(sum_sales - avg_monthly_sales) / avg_monthly_sales else null end > 0.1
+ order by sum_sales - avg_monthly_sales, 3
+ limit 100""",
+    "q67": """select  *
+from (select i_category
+            ,i_class
+            ,i_brand
+            ,i_product_name
+            ,d_year
+            ,d_qoy
+            ,d_moy
+            ,s_store_id
+            ,sumsales
+            ,rank() over (partition by i_category order by sumsales desc) rk
+      from (select i_category
+                  ,i_class
+                  ,i_brand
+                  ,i_product_name
+                  ,d_year
+                  ,d_qoy
+                  ,d_moy
+                  ,s_store_id
+                  ,sum(coalesce(ss_sales_price*ss_quantity,0)) sumsales
+            from store_sales
+                ,date_dim
+                ,store
+                ,item
+       where  ss_sold_date_sk=d_date_sk
+          and ss_item_sk=i_item_sk
+          and ss_store_sk = s_store_sk
+          and d_month_seq between 1193 and 1193+11
+       group by  rollup(i_category, i_class, i_brand, i_product_name, d_year, d_qoy, d_moy,s_store_id))dw1) dw2
+where rk <= 100
+order by i_category
+        ,i_class
+        ,i_brand
+        ,i_product_name
+        ,d_year
+        ,d_qoy
+        ,d_moy
+        ,s_store_id
+        ,sumsales
+        ,rk
+limit 100""",
+    "q89": """select *
+from (select i_category, i_class, i_brand, s_store_name, s_company_name,
+             d_moy, sum(ss_sales_price) sum_sales,
+             avg(sum(ss_sales_price)) over (partition by i_category,
+                 i_brand, s_store_name, s_company_name) avg_monthly_sales
+      from item, store_sales, date_dim, store
+      where ss_item_sk = i_item_sk
+        and ss_sold_date_sk = d_date_sk
+        and ss_store_sk = s_store_sk
+        and d_year in (1998)
+        and ((i_category in ('Books', 'Electronics', 'Sports')
+              and i_class in ('computers', 'stereo', 'football'))
+             or (i_category in ('Men', 'Jewelry', 'Women')
+                 and i_class in ('shirts', 'birdal', 'dresses')))
+      group by i_category, i_class, i_brand, s_store_name, s_company_name,
+               d_moy) tmp1
+where case when avg_monthly_sales <> 0
+           then abs(sum_sales - avg_monthly_sales) / avg_monthly_sales
+           else null end > 0.1
+order by sum_sales - avg_monthly_sales, s_store_name
+limit 100""",
+    "q98": """select i_item_id, i_item_desc, i_category, i_class, i_current_price,
+       sum(ss_ext_sales_price) as itemrevenue,
+       sum(ss_ext_sales_price) * 100 / sum(sum(ss_ext_sales_price))
+           over (partition by i_class) as revenueratio
+from store_sales, item, date_dim
+where ss_item_sk = i_item_sk
+  and i_category in ('Men', 'Women', 'Jewelry')
+  and ss_sold_date_sk = d_date_sk
+  and d_date between cast('1999-02-22' as date)
+                 and (cast('1999-02-22' as date) + interval 30 days)
+group by i_item_id, i_item_desc, i_category, i_class, i_current_price
+order by i_category, i_class, i_item_id, i_item_desc, revenueratio""",
 }

@@ -257,3 +257,93 @@ def test_same_seed_same_data():
                 assert torch.equal(x.valid, y.valid)
     assert not torch.equal(a.get("store_sales").column(col).data,
                            c.get("store_sales").column(col).data)
+
+
+# the columns the store window and rollup reports (q36, q47, q67, q89,
+# q98) read, with their schema kinds
+_REPORT_COLUMNS = {
+    ("item", "i_class"): "string",
+    ("item", "i_current_price"): "decimal",
+    ("item", "i_item_desc"): "string",
+    ("item", "i_item_id"): "string",
+    ("item", "i_product_name"): "string",
+    ("store", "s_state"): "string",
+    ("store", "s_company_name"): "string",
+    ("date_dim", "d_date"): "date",
+    ("date_dim", "d_qoy"): "int64",
+    ("date_dim", "d_month_seq"): "int64",
+    ("store_sales", "ss_net_profit"): "decimal",
+}
+
+
+@pytest.mark.parametrize("table,column", list(_REPORT_COLUMNS))
+def test_report_columns_typed_and_reproducible(cat, table, column):
+    """Each new column has its schema type, no NULLs, and the same values
+    and dictionary from the same seed."""
+    c = cat.get(table).column(column)
+    assert c.ctype.kind == _REPORT_COLUMNS[(table, column)]
+    assert c.ctype == datagen._ctype(table, column)
+    assert c.valid is None
+    again = datagen.generate(0.2, seed=11, device="cpu").get(table).column(
+        column)
+    assert torch.equal(c.data, again.data)
+    if c.dictionary is not None:
+        assert list(c.dictionary) == list(again.dictionary)
+        assert list(c.dictionary) == sorted(c.dictionary)
+        assert int(c.data.min()) >= 0
+        assert int(c.data.max()) < len(c.dictionary)
+
+
+def test_report_column_models(cat):
+    """gen_item's class, business key, description, price and product
+    name; gen_store's state and company; gen_date_dim's date, quarter and
+    month sequence; gen_sale's net profit."""
+    item = cat.get("item")
+    n = item.num_rows
+
+    def strings(col):
+        c = item.column(col)
+        return c.dictionary[c.data.numpy()]
+
+    brand = strings("i_brand")
+    assert [b.rsplit(" #", 1)[0] for b in brand] == list(strings("i_class"))
+    assert list(strings("i_item_id")) == [datagen.bkey(i)
+                                          for i in range(1, n + 1)]
+    for sk, (desc, name) in enumerate(zip(strings("i_item_desc"),
+                                          strings("i_product_name")), 1):
+        words = desc.split(" ")
+        assert 5 <= len(words) <= 20
+        assert set(words) <= set(datagen._WORDS)
+        assert name.endswith(str(sk))
+        assert name[:-len(str(sk))] in datagen._COLORS
+    price = item.column("i_current_price").data
+    assert int(price.min()) >= 100 and int(price.max()) <= 10000
+    store = cat.get("store")
+    states = store.column("s_state")
+    assert set(states.dictionary) <= set(datagen._STORE_STATES[0])
+    assert set(store.column("s_company_name").dictionary) <= {
+        "Company 1", "Company 2"}
+    dd = cat.get("date_dim")
+    days = dd.column("d_date_sk").data.numpy().astype(np.int64) - \
+        _JD_EPOCH_1970
+    np.testing.assert_array_equal(dd.column("d_date").data.numpy(), days)
+    y = dd.column("d_year").data.numpy()
+    m = dd.column("d_moy").data.numpy()
+    np.testing.assert_array_equal(dd.column("d_qoy").data.numpy(),
+                                  (m - 1) // 3 + 1)
+    np.testing.assert_array_equal(dd.column("d_month_seq").data.numpy(),
+                                  (y - 1900) * 12 + m - 1)
+    # q67's month window 1193..1204 is June 1999 .. May 2000
+    seq = dd.column("d_month_seq").data.numpy()
+    assert (y[seq == 1193] == 1999).all() and (m[seq == 1193] == 6).all()
+    ss = cat.get("store_sales")
+    profit = ss.column("ss_net_profit").data
+    paid = ss.column("ss_net_paid").data
+    q = ss.column("ss_quantity").data
+    wholesale_ext = paid - profit
+    # the extended wholesale cost: quantity x 1.00 .. 100.00
+    assert bool((wholesale_ext % q == 0).all())
+    per_unit = wholesale_ext // q
+    assert int(per_unit.min()) >= 100 and int(per_unit.max()) <= 10000
+    # sales <= list <= 2 x wholesale
+    assert bool((ss.column("ss_sales_price").data <= 2 * per_unit).all())

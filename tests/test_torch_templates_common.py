@@ -27,11 +27,9 @@ from test_jaxexec import assert_tables_match
 TEMPLATES = [t[:-len(".tpl")] for t in streamgen.list_templates()]
 PARTS = 3
 
-# plan nodes, and NDS2xx codes, of the families still to port: windows,
-# set ops, distinct, grouping sets (and distinct aggregates, NDS207 with
-# "distinct" in the message)
-_TO_PORT_NODES = {"Window", "SetOp", "Distinct"}
-_TO_PORT_CODES = {"NDS209", "NDS214"}
+# plan nodes of the families still to port: set ops and distinct (and
+# distinct aggregates, NDS207 with "distinct" in the message)
+_TO_PORT_NODES = {"SetOp", "Distinct"}
 
 
 def part(i: int):
@@ -41,7 +39,7 @@ def part(i: int):
 
 
 def still_to_port(u: torchexec.Unsupported) -> bool:
-    if u.node in _TO_PORT_NODES or u.code in _TO_PORT_CODES:
+    if u.node in _TO_PORT_NODES:
         return True
     return u.code == "NDS207" and "distinct" in str(u)
 
