@@ -664,6 +664,7 @@ class StoreReference:
     def __init__(self, cat):
         self.cat = cat
         self.memo = {}
+        self.sizes = {}     # intermediate sizes the reports reach
 
     def col(self, table, col):
         return _host(self.cat, table, col)[0]
@@ -819,6 +820,7 @@ class StoreReference:
         keys = (("item", "i_category"), ("item", "i_brand"),
                 ("store", "s_store_name"), ("store", "s_company_name"))
         g, dicts, sums = self._monthly(date_ok, None, keys)
+        self.sizes["q47 monthly groups"] = len(sums)
         part = [g[k] for _, k in keys]
         avg = self._partition_avg(part + [g["d_year"]], sums)
         # the groups come sorted by (keys, year, month): rank within the
@@ -850,12 +852,14 @@ class StoreReference:
         rows, _, i, _ = self.star((date >= day0) & (date <= day0 + 30),
                                   item_ok)
         n_item = len(cat)
+        item_id = self.col("item", "i_item_id")
+        # i_item_id is unique (checked), so its groups are the items
+        assert len(set(item_id.tolist())) == n_item
         rev = _exact_sums(i, self.fact("ss_ext_sales_price")[0][rows],
                           n_item)
         sold = np.flatnonzero(np.bincount(i, minlength=n_item) > 0)
         cls, cls_dict = self.codes("item", "i_class")
         class_rev = _exact_sums(cls[sold], rev[sold], len(cls_dict))
-        item_id = self.col("item", "i_item_id")
         desc = self.col("item", "i_item_desc")
         price = self.col("item", "i_current_price")
         out = []
@@ -899,6 +903,10 @@ class StoreReference:
         brand, brand_dict = self.codes("item", "i_brand")
         pname = self.col("item", "i_product_name")
         store_id = self.col("store", "s_store_id")
+        # product names and store ids are unique (checked), so grouping by
+        # item and store is grouping by the rollup's keys
+        assert len(set(pname.tolist())) == len(pname)
+        assert len(set(store_id.tolist())) == n_store
 
         def keys(j, n):
             """The 8 rollup keys of finest group j, the last 8 - n NULL."""
@@ -933,6 +941,10 @@ class StoreReference:
                          _exact_sums(inv2, it_sum, len(first_of)))
         levels[0] = (np.zeros(1, np.int64), np.array([-1]),
                      np.array([int(fsum.sum())]))
+        self.sizes.update({"q67 joined rows": len(rows),
+                           "q67 finest groups": len(fine),
+                           "q67 rollup groups": sum(
+                               len(lv[2]) for lv in levels.values())})
         # rank within each category (the grand total alone in the NULL
         # category's partition): rank <= 100 iff the sum is at least the
         # partition's 100th largest
@@ -1314,7 +1326,7 @@ def main() -> int:
     t0 = time.time()
     want = {q: getattr(sref, q)() for q in WINDOW_QUERIES}
     say("window reference", seconds=time.time() - t0,
-        rows={q: len(w) for q, w in want.items()})
+        rows={q: len(w) for q, w in want.items()}, sizes=sref.sizes)
     del sref
     segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
     for q, sql in WINDOW_QUERIES.items():
