@@ -43,7 +43,9 @@ non-zero:
    self-join on rank) through the same session, recorded and held
    against the numpy reference as in phase 5 (decimals exact, floats
    within 1e-5 relative, in the query's order); q36's rollup must reach
-   ``segsum_decimal``.
+   ``segsum_decimal``.  Before the path runs, each of q36's finest-grain
+   ``segsum_decimal`` calls is captured and checked and timed at its own
+   inputs as in phase 4 (bit-exact against the plain version).
 
 Phases 5, 6, 7 and 8 are the main paths: the kernel launch counts are
 set to 0 just before each and read just after, and every kernel each path
@@ -1147,6 +1149,24 @@ def compare(want_all: list, got: list, key, limit=LIMIT) -> None:
         i = j
 
 
+def segsum_calls(segsum, sess, sql) -> list:
+    """Copies of the inputs of every ``segment_sum_decimal`` call that one
+    run of ``sql`` makes: [(vals, gid, mask, segments), ...]."""
+    captured = []
+    wrapper = segsum.segment_sum_decimal
+
+    def capture(vals, gid, mask, s):
+        captured.append((vals.clone(), gid.clone(), mask.clone(), s))
+        return wrapper(vals, gid, mask, s)
+
+    segsum.segment_sum_decimal = capture
+    try:
+        sess.sql(sql)
+    finally:
+        segsum.segment_sum_decimal = wrapper
+    return captured
+
+
 def descale_check(seed: int, n: int = 1 << 22) -> None:
     """The engine's decimal(12, 2) -> float64 cast on the card against
     numpy's IEEE quotient, bit for bit."""
@@ -1204,18 +1224,7 @@ def main() -> int:
     sess = Session(cat, device="cuda")
 
     # capture the kernel's inputs on the main path (a q42 run)
-    captured = []
-    wrapper = segsum.segment_sum_decimal
-
-    def capture(vals, gid, mask, s):
-        captured.append((vals.clone(), gid.clone(), mask.clone(), s))
-        return wrapper(vals, gid, mask, s)
-
-    segsum.segment_sum_decimal = capture
-    try:
-        sess.sql(QUERIES["q42"])
-    finally:
-        segsum.segment_sum_decimal = wrapper
+    captured = segsum_calls(segsum, sess, QUERIES["q42"])
     if len(captured) != 1 or captured[0][3] != SEGMENTS_Q42:
         raise AssertionError(f"q42 made {len(captured)} segment-sum calls "
                              f"({[c[3] for c in captured]} segments)")
@@ -1328,6 +1337,17 @@ def main() -> int:
     say("window reference", seconds=time.time() - t0,
         rows={q: len(w) for q, w in want.items()}, sizes=sref.sizes)
     del sref
+    # the path's kernel at the path's own shape: q36's finest-grain sums,
+    # each bit-exact against the plain version on its captured inputs
+    captured = segsum_calls(segsum, sess, WINDOW_QUERIES["q36"])
+    if not captured:
+        raise AssertionError("q36 made no segment-sum call")
+    for i, (vals, gid, mask, s) in enumerate(captured):
+        rec = decimal_shape(segsum, f"q36 main path, sum {i + 1}", vals,
+                            gid, mask, s)
+        k["shapes"].append(rec)
+        k["max_abs_err"] = max(k["max_abs_err"], rec["max_abs_err"])
+    del captured, vals, gid, mask
     segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
     for q, sql in WINDOW_QUERIES.items():
         got, rec = run_query(q, sql, nulls=True)

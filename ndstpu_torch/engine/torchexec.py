@@ -1115,10 +1115,11 @@ def _typed_sum(data: torch.Tensor, valid: torch.Tensor, kind: str,
     """Per-segment sums of the valid rows: decimal/int sums stay exact
     int64, float sums are native float64 (:mod:`ndstpu_torch.engine.fp64`,
     jaxexec's compensated f32-pair scan)."""
-    x = _sum_input(data, valid, kind)
     if kind in ("decimal", "int32", "int64"):
-        return _segment_sum(x, gid, ngseg)
-    return fp64.segment_sum_compensated(x, gid, ngseg)
+        return _segment_sum(data.to(torch.int64).masked_fill(~valid, 0),
+                            gid, ngseg)
+    return fp64.segment_sum_compensated(
+        data.to(torch.float64).masked_fill(~valid, 0.0), gid, ngseg)
 
 
 def _key_i64(c: DCol, alive: torch.Tensor,

@@ -24,6 +24,12 @@ def cat():
     return datagen.generate(0.2, seed=11, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def cat_again():
+    """A second warehouse from ``cat``'s seed, for reproducibility."""
+    return datagen.generate(0.2, seed=11, device="cpu")
+
+
 @pytest.mark.parametrize("sf", [1, 10, 100])
 def test_row_counts_match_ndsgen(sf):
     out = subprocess.run([str(check_build()), "-sizes", str(sf)],
@@ -277,15 +283,15 @@ _REPORT_COLUMNS = {
 
 
 @pytest.mark.parametrize("table,column", list(_REPORT_COLUMNS))
-def test_report_columns_typed_and_reproducible(cat, table, column):
+def test_report_columns_typed_and_reproducible(cat, cat_again, table,
+                                               column):
     """Each new column has its schema type, no NULLs, and the same values
     and dictionary from the same seed."""
     c = cat.get(table).column(column)
     assert c.ctype.kind == _REPORT_COLUMNS[(table, column)]
     assert c.ctype == datagen._ctype(table, column)
     assert c.valid is None
-    again = datagen.generate(0.2, seed=11, device="cpu").get(table).column(
-        column)
+    again = cat_again.get(table).column(column)
     assert torch.equal(c.data, again.data)
     if c.dictionary is not None:
         assert list(c.dictionary) == list(again.dictionary)
