@@ -23,7 +23,8 @@ non-zero:
    no fixed order), each case checked 20 times and reported on its own.
    At each shape: the wrapper's time a call (CUDA events around 50
    calls), the kernel's device time a call (``torch.profiler``), the
-   least time the card could take (its bound), the plain version's and a
+   least time the card could take (its bound: the bytes of the rows the
+   mask keeps, and every mask byte), the plain version's and a
    one-call PyTorch yardstick's time, and every regime the kernel's
    launch planner can choose, forced, checked and timed; then a sweep of
    rows a segment across the regimes;
@@ -45,9 +46,20 @@ non-zero:
    within 1e-5 relative, in the query's order); q36's rollup must reach
    ``segsum_decimal``.  Before the path runs, each of q36's finest-grain
    ``segsum_decimal`` calls is captured and checked and timed at its own
-   inputs as in phase 4 (bit-exact against the plain version).
+   inputs as in phase 4 (bit-exact against the plain version);
+9. set operations and distinct: q28 (six ``count(distinct)`` branches
+   over store_sales), q41 (DISTINCT with a correlated count), q76 (UNION
+   ALL of the three channels' NULL-key rows; once more without its
+   LIMIT, so that every group of the union is held) and q2 (UNION ALL of
+   the web and catalog channels under a CTE the plan holds twice, which
+   the executor's memo runs once) through the same session, recorded
+   and held against the numpy reference as in phase 5.  Before the path
+   runs, every ``segsum_decimal`` call of one run of each of the four is
+   held bit-exact against the plain version at its own inputs, and each
+   query's first is checked and timed as a kernel shape as in phase 4
+   (q28's banded average is the path's one call).
 
-Phases 5, 6, 7 and 8 are the main paths: the kernel launch counts are
+Phases 5, 6, 7, 8 and 9 are the main paths: the kernel launch counts are
 set to 0 just before each and read just after, and every kernel each path
 runs must have launched.  Then one JSON line of kernels, and last the
 result line ``{"ok": true, "device": {...}}``.
@@ -67,8 +79,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ndstpu_torch.queries import (Q9_BUCKETS, QUERIES, STORE_QUERIES,
-                                  WINDOW_QUERIES)
+from ndstpu_torch.queries import (Q9_BUCKETS, QUERIES, SETOP_QUERIES,
+                                  STORE_QUERIES, WINDOW_QUERIES)
 
 # H100 SXM HBM3 rate (NVIDIA data sheet): the bound of a byte-bound kernel
 HBM_BYTES_PER_S = 3.35e12
@@ -144,6 +156,18 @@ def cuda_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
+
+
+def masked_bound_ms(mask, s: int, row_bytes: int,
+                    seg_bytes: int) -> float:
+    """The least time the card could take for a masked segment sum: every
+    mask byte read, the value and group id (``row_bytes``) of each row the
+    mask keeps read once, each segment's outputs (``seg_bytes``) written
+    once, at the HBM rate.  A row the mask drops need not be read, so the
+    bound counts this input's kept rows (q28's average keeps 6%)."""
+    kept = int(mask.sum())
+    return (mask.shape[0] + row_bytes * kept + seg_bytes * s) / \
+        HBM_BYTES_PER_S * 1e3
 
 
 def profiled_ms(fn, reps: int):
@@ -300,7 +324,7 @@ def decimal_shape(segsum, name, vals, gid, mask, s) -> dict:
         lambda: segsum.segment_sum_decimal(vals, gid, mask, s),
         lambda: segsum.segment_sum_decimal_plain(vals, gid, mask, s),
         lambda: out.index_add_(0, g, v),
-        (13 * n + 16 * s) / HBM_BYTES_PER_S * 1e3, n))
+        masked_bound_ms(mask, s, 12, 16), n))
     rec["regimes_queued_ms"] = decimal_regimes(segsum, vals, gid, mask, s)
     say("kernel", name="segsum_decimal", **rec)
     return rec
@@ -441,12 +465,12 @@ def f32_shape(segsum, name, vals, gid, mask, s) -> dict:
     rec = dict(shape=name, n=n, segments=s, rtol=3e-4, atol=1.0,
                draws=F32_DRAWS, **worst,
                plan=list(segsum._plan_f32(n, s, segsum._sms(vals.device))))
-    # 9 bytes a row read (float32, int32, bool), 4 a segment written
+    # a float32 and an int32 a kept row, a float32 a segment
     rec.update(timings(
         lambda: segsum.segment_sum_f32(vals, gid, mask, s),
         lambda: segsum.segment_sum_f32_plain(vals, gid, mask, s),
         lambda: bench.library_f32(vals, gid, mask, s),
-        (9 * n + 4 * s) / HBM_BYTES_PER_S * 1e3, n))
+        masked_bound_ms(mask, s, 8, 4), n))
     rec["regimes_queued_ms"] = f32_regimes(segsum, vals, gid, mask, s,
                                            3e-4, 1.0)
     say("kernel", name="segsum_f32", **rec)
@@ -638,6 +662,8 @@ def _null_first(row) -> tuple:
     return tuple((0, 0) if x is None else (1, x) for x in row)
 
 
+DAYS = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday", "Friday",
+        "Saturday")
 # each window report's ORDER BY over its result row, as a sort key
 WINDOW_ORDER = {
     # lochierarchy desc, case when lochierarchy = 0 then i_category end,
@@ -980,8 +1006,6 @@ class StoreReference:
         return [tuple(row)]
 
     def q43(self) -> list:
-        days = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
-                "Friday", "Saturday")
         date_sk, date_ok = _host(self.cat, "store_sales", "ss_sold_date_sk")
         store_sk, store_ok = _host(self.cat, "store_sales", "ss_store_sk")
         price = self.col("store_sales", "ss_sales_price")
@@ -989,7 +1013,7 @@ class StoreReference:
                             date_ok)
         sidx = _dense_index(self.col("store", "s_store_sk"), store_sk,
                             store_ok)
-        day = np.array([days.index(d) for d in
+        day = np.array([DAYS.index(d) for d in
                         self.col("date_dim", "d_day_name")] + [0])
         year_ok = np.append(self.col("date_dim", "d_year") == 1999, False)
         gmt_ok = np.append(self.col("store", "s_gmt_offset") == -600, False)
@@ -1073,6 +1097,175 @@ class StoreReference:
         return rows[:LIMIT]
 
 
+# q41's eight (category, colors, units, sizes) branches, each ANDed with
+# the outer item's manufacturer
+Q41_BRANCHES = (
+    ("Women", ("powder", "khaki"), ("Ounce", "Oz"), ("medium", "extra large")),
+    ("Women", ("brown", "honeydew"), ("Bunch", "Ton"), ("N/A", "small")),
+    ("Men", ("floral", "deep"), ("N/A", "Dozen"), ("petite",)),
+    ("Men", ("light", "cornflower"), ("Box", "Pound"),
+     ("medium", "extra large")),
+    ("Women", ("midnight", "snow"), ("Pallet", "Gross"),
+     ("medium", "extra large")),
+    ("Women", ("cyan", "papaya"), ("Cup", "Dram"), ("N/A", "small")),
+    ("Men", ("orange", "frosted"), ("Each", "Tbl"), ("petite",)),
+    ("Men", ("forest", "ghost"), ("Lb", "Bundle"), ("medium", "extra large")),
+)
+# q76's branches: (channel, the NULL-key column, its table, the table's
+# sold-date, item and price columns)
+Q76_BRANCHES = (
+    ("store", "ss_store_sk", "store_sales", "ss_sold_date_sk", "ss_item_sk",
+     "ss_ext_sales_price"),
+    ("web", "ws_ship_customer_sk", "web_sales", "ws_sold_date_sk",
+     "ws_item_sk", "ws_ext_sales_price"),
+    ("catalog", "cs_ship_addr_sk", "catalog_sales", "cs_sold_date_sk",
+     "cs_item_sk", "cs_ext_sales_price"),
+)
+class SetopReference:
+    """q2, q28, q41 and q76 answered from host copies of the generated
+    tables with numpy alone, written from the SQL and independent of the
+    engine; each method returns every result row in the query's order
+    (decimals as scaled int64, averages and ratios as floats computed
+    with the engine's float64 operations in the same order) and asserts
+    that there is one."""
+
+    def __init__(self, cat):
+        self.cat = cat
+        self.sizes = {}     # intermediate sizes the reports reach
+
+    def col(self, table, col):
+        return _host(self.cat, table, col)[0]
+
+    def q28(self) -> list:
+        """avg, count and count(distinct) of ss_list_price over six
+        quantity bands of the sales with a list price, coupon or
+        wholesale cost in range."""
+        q = self.col("store_sales", "ss_quantity")
+        price = self.col("store_sales", "ss_list_price")
+        coupon = self.col("store_sales", "ss_coupon_amt")
+        cost = self.col("store_sales", "ss_wholesale_cost")
+        # cents: list 180..190, coupon 3109..4109, wholesale 62..82
+        cond = ((price >= 18000) & (price <= 19000)) | \
+            ((coupon >= 310900) & (coupon <= 410900)) | \
+            ((cost >= 6200) & (cost <= 8200))
+        row = []
+        for lo, hi in ((0, 5), (6, 10), (11, 15), (16, 20), (21, 25),
+                       (26, 30)):
+            vals = price[cond & (q >= lo) & (q <= hi)]
+            n = len(vals)
+            assert n > 0, f"q28: band {lo}..{hi} is empty"
+            self.sizes[f"q28 band {lo}..{hi} rows"] = n
+            # the engine's avg: the exact sum in float64, over the count,
+            # over 10^scale
+            row += [float(int(vals.sum())) / n / 100, n,
+                    int((np.bincount(vals) > 0).sum())]
+        return [tuple(row)]
+
+    def q41(self) -> list:
+        """The distinct product names of the items of manufacturers 684
+        to 724 whose manufacturer makes an item of one of eight
+        (category, color, units, size) kinds."""
+        cat, color, units, size, manu, manu_id, name = (
+            self.col("item", c) for c in (
+                "i_category", "i_color", "i_units", "i_size", "i_manufact",
+                "i_manufact_id", "i_product_name"))
+        kind = np.zeros(len(cat), bool)
+        for c, colors, unit, sizes in Q41_BRANCHES:
+            kind |= (cat == c) & np.isin(color, colors) & \
+                np.isin(units, unit) & np.isin(size, sizes)
+        makers = np.unique(manu[kind])
+        sel = (manu_id >= 684) & (manu_id <= 724) & np.isin(manu, makers)
+        self.sizes.update({"q41 items of a kind": int(kind.sum()),
+                           "q41 items selected": int(sel.sum())})
+        out = [(str(n),) for n in sorted(set(name[sel].tolist()))]
+        assert out, "q41: no item qualifies"
+        return out
+
+    def q76(self) -> list:
+        """Count and sum of the extended price of each channel's sales
+        with a NULL key, by year, quarter and category.  The catalog
+        branch's key is never NULL in the model: its groups must be
+        absent, which the data, not the reference, decides."""
+        year = self.col("date_dim", "d_year")
+        qoy = self.col("date_dim", "d_qoy")
+        cat = self.col("item", "i_category")
+        out = []
+        for channel, key, table, date, item, price in Q76_BRANCHES:
+            _, kvalid = _host(self.cat, table, key)
+            dsk, dvalid = _host(self.cat, table, date)
+            d = _dense_index(self.col("date_dim", "d_date_sk"), dsk, dvalid)
+            rows = np.flatnonzero((d >= 0) & (
+                ~kvalid if kvalid is not None else False))
+            self.sizes[f"q76 {channel} rows"] = len(rows)
+            if channel == "catalog":
+                assert len(rows) == 0, "q76: catalog rows with a NULL key"
+            if not len(rows):
+                continue
+            d = d[rows]
+            i = _dense_index(self.col("item", "i_item_sk"),
+                             self.col(table, item)[rows], None)
+            # groups of (year, quarter, category), year and quarter
+            # ascending; categories as strings, sorted below
+            cat_codes, cat_of = np.unique(cat[i], return_inverse=True)
+            comp = (year[d].astype(np.int64) * 5 + qoy[d]) * \
+                len(cat_codes) + cat_of.reshape(-1)
+            uniq, inv = np.unique(comp, return_inverse=True)
+            inv = inv.reshape(-1)
+            sums = _exact_sums(inv, self.col(table, price)[rows], len(uniq))
+            cnts = np.bincount(inv, minlength=len(uniq))
+            for u, c, t in zip(uniq.tolist(), cnts.tolist(), sums.tolist()):
+                yq, k = divmod(u, len(cat_codes))
+                out.append((channel, key, yq // 5, yq % 5,
+                            str(cat_codes[k]), c, t))
+        assert out, "q76: no sales with a NULL key"
+        return sorted(out, key=lambda r: r[:5])
+
+    def q2(self) -> list:
+        """Week-over-year ratios of web and catalog sales by day of week:
+        each week of 2001 against the week 53 weeks later, once for each
+        pair of its days in 2001 and the other week's days in 2002 (the
+        joins to date_dim repeat each week by its days in the year)."""
+        week = self.col("date_dim", "d_week_seq").astype(np.int64)
+        year = self.col("date_dim", "d_year")
+        dow = np.array([DAYS.index(x)
+                        for x in self.col("date_dim", "d_day_name")])
+        n_slot = (int(week.max()) + 1) * 7
+        keys, prices = [], []
+        for table, date, price in (
+                ("web_sales", "ws_sold_date_sk", "ws_ext_sales_price"),
+                ("catalog_sales", "cs_sold_date_sk", "cs_ext_sales_price")):
+            dsk, dvalid = _host(self.cat, table, date)
+            d = _dense_index(self.col("date_dim", "d_date_sk"), dsk, dvalid)
+            rows = np.flatnonzero(d >= 0)
+            keys.append(week[d[rows]] * 7 + dow[d[rows]])
+            prices.append(self.col(table, price)[rows])
+        key = np.concatenate(keys)
+        self.sizes["q2 joined rows"] = len(key)
+        sums = _exact_sums(key, np.concatenate(prices), n_slot).reshape(-1, 7)
+        had = (np.bincount(key, minlength=n_slot) > 0).reshape(-1, 7)
+        days_in = {y: np.bincount(week[year == y], minlength=len(sums))
+                   for y in (2001, 2002)}
+        out = []
+        for w in np.flatnonzero(days_in[2001] > 0).tolist():
+            w2 = w + 53
+            if w2 >= len(sums) or not had[w].any() or not had[w2].any() \
+                    or days_in[2002][w2] == 0:
+                continue
+            row = [w]
+            for k in range(7):
+                if not (had[w, k] and had[w2, k]) or sums[w2, k] == 0:
+                    row.append(None)
+                    continue
+                # the engine's division of two decimals and its round
+                x = (np.float64(sums[w, k]) / 100.0) / \
+                    (np.float64(sums[w2, k]) / 100.0)
+                row.append(float(np.floor(np.abs(x) * 100.0 + 0.5) / 100.0
+                                 * np.sign(x)))
+            out += [tuple(row)] * int(days_in[2001][w] * days_in[2002][w2])
+        assert out, "q2: no week pairs"
+        return out
+
+
 def rows_match(want: list, got: list, rel: float = 1e-5) -> bool:
     """Exact for ints and strings, ``rel`` relative for floats."""
     if len(want) != len(got):
@@ -1149,14 +1342,21 @@ def compare(want_all: list, got: list, key, limit=LIMIT) -> None:
         i = j
 
 
-def segsum_calls(segsum, sess, sql) -> list:
-    """Copies of the inputs of every ``segment_sum_decimal`` call that one
-    run of ``sql`` makes: [(vals, gid, mask, segments), ...]."""
-    captured = []
+def segsum_calls(segsum, sess, sql, keep=None) -> tuple:
+    """One run of ``sql`` with every ``segment_sum_decimal`` call it makes
+    held bit-exact against the plain version at the call's own inputs:
+    (copies of the inputs of the first ``keep`` calls, all of them by
+    default, as [(vals, gid, mask, segments), ...]; the number of calls;
+    their largest error)."""
+    captured, errs = [], []
     wrapper = segsum.segment_sum_decimal
 
     def capture(vals, gid, mask, s):
-        captured.append((vals.clone(), gid.clone(), mask.clone(), s))
+        segsum.segment_sum_decimal = wrapper
+        errs.append(check_segsum(segsum, vals, gid, mask, s))
+        segsum.segment_sum_decimal = capture
+        if keep is None or len(captured) < keep:
+            captured.append((vals.clone(), gid.clone(), mask.clone(), s))
         return wrapper(vals, gid, mask, s)
 
     segsum.segment_sum_decimal = capture
@@ -1164,7 +1364,7 @@ def segsum_calls(segsum, sess, sql) -> list:
         sess.sql(sql)
     finally:
         segsum.segment_sum_decimal = wrapper
-    return captured
+    return captured, len(errs), max(errs, default=0)
 
 
 def descale_check(seed: int, n: int = 1 << 22) -> None:
@@ -1224,7 +1424,7 @@ def main() -> int:
     sess = Session(cat, device="cuda")
 
     # capture the kernel's inputs on the main path (a q42 run)
-    captured = segsum_calls(segsum, sess, QUERIES["q42"])
+    captured = segsum_calls(segsum, sess, QUERIES["q42"])[0]
     if len(captured) != 1 or captured[0][3] != SEGMENTS_Q42:
         raise AssertionError(f"q42 made {len(captured)} segment-sum calls "
                              f"({[c[3] for c in captured]} segments)")
@@ -1274,7 +1474,8 @@ def main() -> int:
         return got, dict(
             query=q, cold_ms=cold, warm_median_ms=statistics.median(warm),
             rows=len(got), peak_bytes=torch.cuda.max_memory_allocated(),
-            host_syncs=sess.executor.n_syncs, routes_to_kernel=any(routed),
+            host_syncs=sess.executor.n_syncs,
+            memo_hits=sess.executor.n_memo_hits, routes_to_kernel=any(routed),
             kernel_launches=launched,
             f32_kernel_launches=segsum.LAUNCHES_F32 - before[1], card=card)
 
@@ -1339,7 +1540,7 @@ def main() -> int:
     del sref
     # the path's kernel at the path's own shape: q36's finest-grain sums,
     # each bit-exact against the plain version on its captured inputs
-    captured = segsum_calls(segsum, sess, WINDOW_QUERIES["q36"])
+    captured = segsum_calls(segsum, sess, WINDOW_QUERIES["q36"])[0]
     if not captured:
         raise AssertionError("q36 made no segment-sum call")
     for i, (vals, gid, mask, s) in enumerate(captured):
@@ -1358,6 +1559,49 @@ def main() -> int:
             raise AssertionError("q36's rollup launched no segsum_decimal")
     window_launches = segsum.LAUNCHES
 
+    # main path 5: set operations, DISTINCT and distinct aggregates
+    t0 = time.time()
+    xref = SetopReference(cat)
+    want = {q: getattr(xref, q)() for q in SETOP_QUERIES}
+    say("setop reference", seconds=time.time() - t0,
+        rows={q: len(w) for q, w in want.items()}, sizes=xref.sizes)
+    del xref
+    # the path's kernel at its own inputs: every segment sum of one run of
+    # each query bit-exact, the first of each query timed as a shape
+    routed_calls = {}
+    for q, sql in SETOP_QUERIES.items():
+        captured, n_calls, err = segsum_calls(segsum, sess, sql, keep=1)
+        routed_calls[q] = n_calls
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        for vals, gid, mask, s in captured:
+            k["shapes"].append(decimal_shape(
+                segsum, f"{q} main path, sum 1 of {n_calls}", vals, gid,
+                mask, s))
+        del captured
+    say("setop segment sums", calls=routed_calls)
+    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    setop_orders = {"q28": None, "q41": lambda r: r[:1],
+                    "q76": lambda r: r[:5], "q2": lambda r: r[:1]}
+    for q, sql in SETOP_QUERIES.items():
+        got, rec = run_query(q, sql, nulls=True)
+        if setop_orders[q] is None:
+            if not rows_match(want[q], got):
+                raise AssertionError(f"{q}: {got} vs reference {want[q]}")
+        else:
+            compare(want[q], got, setop_orders[q],
+                    limit=None if q == "q2" else LIMIT)
+        say("setop slice", **rec)
+    # q76 without its LIMIT: every group of the union, the web branch's
+    # included (the store branch's groups fill the first 100 rows)
+    got, rec = run_query("q76 whole", SETOP_QUERIES["q76"].replace(
+        "limit 100", ""), nulls=True)
+    compare(want["q76"], got, setop_orders["q76"], limit=None)
+    say("setop slice", channels=sorted({r[0] for r in got}), **rec)
+    setop_launches = segsum.LAUNCHES
+    if any(routed_calls.values()) and not setop_launches:
+        raise AssertionError("the path routes sums to segsum_decimal but "
+                             "launched it no time")
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "segsum_decimal", "route": "cuda",
@@ -1365,11 +1609,12 @@ def main() -> int:
         "replaces": "ndstpu/ops/segsum.py:141",
         "tpu_kernel": "ndstpu/ops/segsum.py::_limb_kernel",
         "launches": family_launches + bench_launches[0] + store_launches +
-        window_launches,
+        window_launches + setop_launches,
         "launches_by_path": {"q3 family": family_launches,
                              "bench": bench_launches[0],
                              "store slice": store_launches,
-                             "store window reports": window_launches},
+                             "store window reports": window_launches,
+                             "set operations and distinct": setop_launches},
         "max_abs_err": k["max_abs_err"],
         "ms": k["call_ms"], "kernel_ms": k["call_ms"],
         "device_ms": k["device_ms"],

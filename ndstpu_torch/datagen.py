@@ -19,19 +19,33 @@ C++ generator (``ndstpu/datagen/ndsgen.cpp``):
   quantity uniform up to the sale's and a uniform reason;
 * ``gen_item``: weighted category and class (``dists.json`` weights), the
   ``brand_id = (cat+1)*10^6 + (cls+1)*10^3 + brand`` encoding, ``i_brand``
-  and ``i_class`` strings, ``i_manufact_id`` 1..1000, ``i_manager_id``
-  1..100, ``i_item_id`` the business key, ``i_item_desc`` a sentence of
-  5..20 words of the word pool, ``i_current_price`` 1.00..100.00 and
-  ``i_product_name`` a color and the surrogate key;
+  and ``i_class`` strings, ``i_manufact_id`` 1..1000 and ``i_manufact``
+  its ``"manu#<id>"`` name, ``i_manager_id`` 1..100, ``i_item_id`` the
+  business key, ``i_item_desc`` a sentence of 5..20 words of the word
+  pool, ``i_current_price`` 1.00..100.00, ``i_product_name`` a color and
+  the surrogate key, ``i_color`` weighted by ``dists.json`` "colors", and
+  ``i_units`` and ``i_size`` uniform over ``kUnits`` and ``kSizes``;
 * ``gen_date_dim``: the calendar from 1900-01-02, 73,049 days, with the
-  date, quarter, month sequence (months since January 1900) and day
-  names;
+  date, quarter, month sequence (months since January 1900), week
+  sequence (weeks since 1900-01-02) and day names;
+* ``gen_store_sales``: the sale's wholesale cost, list price and coupon
+  kept as columns;
+* ``gen_catalog_sales`` and ``gen_web_sales``, reduced to the sold date,
+  item and extended sales price of ``gen_sale``'s model, with
+  ``cs_ship_addr_sk`` uniform over customer_address (never NULL) and
+  ``ws_ship_customer_sk`` NULL where the sale's customer is (3%),
+  otherwise the sale's Zipf customer 85% of the time and a uniform one
+  else;
 * ``gen_store`` (weighted ``s_state`` from ``store_states``,
   ``s_company_name`` "Company 1" or "Company 2"), ``gen_reason``,
   ``gen_household_demographics`` and ``gen_time_dim``.
 
 Only the columns of :data:`COLUMNS` are generated.  The numbers are not
-ndsgen's (the random streams differ); the distributions are.
+ndsgen's (the random streams differ); the distributions are.  The main
+generator draws every column it drew when the channel had only its first
+columns, in the same order; the item columns added later and the catalog
+and web tables draw from streams of their own (ndsgen keeps its "extra
+columns stream" the same way), so the earlier columns keep their values.
 """
 
 from __future__ import annotations
@@ -50,9 +64,12 @@ from ndstpu_torch.schema import DType, get_schemas
 # published row counts at SF 1 / 10 / 100 / 1000 (ndsgen.cpp compute_sizes)
 _STEPS = {
     "store_sales": ((2880404, 28800991, 287997024, 2879987999), True),
+    "catalog_sales": ((1441548, 14401261, 143997065, 1439980416), True),
+    "web_sales": ((719384, 7197566, 72001237, 720000376), True),
     "store_returns": ((287514, 2875432, 28795080, 287999764), True),
     "item": ((18000, 102000, 204000, 300000), False),
     "customer": ((100000, 500000, 2000000, 12000000), False),
+    "customer_address": ((50000, 250000, 1000000, 6000000), False),
     "store": ((12, 102, 402, 1002), False),
     "reason": ((35, 45, 55, 65), False),
 }
@@ -112,6 +129,16 @@ _COLORS = (
     "violet", "beige", "azure", "chartreuse", "coral", "crimson", "gold",
     "silver", "plum", "orchid", "peach", "mint", "rose", "ghost", "snow",
     "seashell", "linen")
+# dists.json "colors" weights, over _COLORS (i_color's weighted pick)
+_COLOR_WEIGHTS = (12, 12, 10, 8, 7, 7, 10, 10, 6, 6, 5, 3, 3, 4, 4, 4, 4, 5,
+                  4, 4, 4, 4, 3, 3, 4, 2, 2, 3, 3, 4, 4, 2, 2, 3, 2, 3, 1, 2,
+                  1, 1)
+# ndsgen.cpp kUnits and kSizes (i_units, i_size: picked uniformly)
+_UNITS = ("Each", "Dozen", "Case", "Pound", "Ounce", "Pallet", "Gross", "Box",
+          "Carton", "Bundle", "Ton", "Dram", "Cup", "Gram", "Lb", "Oz", "Tbl",
+          "Tsp", "Unknown", "N/A")
+_SIZES = ("small", "medium", "large", "extra large", "economy", "petite",
+          "N/A")
 # ndsgen.cpp kWordPool (the words of sentence())
 _WORDS = (
     "results", "important", "whole", "right", "general", "great", "special",
@@ -130,16 +157,22 @@ _BUY_POTENTIAL = ("0-500", "501-1000", "1001-5000", "5001-10000", ">10000",
 # the generated columns, per table
 COLUMNS = {
     "date_dim": ("d_date_sk", "d_date", "d_month_seq", "d_year", "d_moy",
-                 "d_qoy", "d_day_name"),
+                 "d_qoy", "d_day_name", "d_week_seq"),
     "item": ("i_item_sk", "i_item_id", "i_item_desc", "i_current_price",
              "i_brand_id", "i_brand", "i_class", "i_category_id",
              "i_category", "i_manufact_id", "i_manager_id",
-             "i_product_name"),
+             "i_product_name", "i_manufact", "i_color", "i_units",
+             "i_size"),
     "store_sales": ("ss_sold_date_sk", "ss_sold_time_sk", "ss_item_sk",
                     "ss_customer_sk", "ss_hdemo_sk", "ss_store_sk",
                     "ss_ticket_number", "ss_quantity", "ss_sales_price",
                     "ss_ext_discount_amt", "ss_ext_sales_price",
-                    "ss_net_paid", "ss_net_profit"),
+                    "ss_net_paid", "ss_net_profit", "ss_wholesale_cost",
+                    "ss_list_price", "ss_coupon_amt"),
+    "catalog_sales": ("cs_sold_date_sk", "cs_ship_addr_sk", "cs_item_sk",
+                      "cs_ext_sales_price"),
+    "web_sales": ("ws_sold_date_sk", "ws_item_sk", "ws_ship_customer_sk",
+                  "ws_ext_sales_price"),
     "store_returns": ("sr_item_sk", "sr_reason_sk", "sr_ticket_number",
                       "sr_return_quantity"),
     "store": ("s_store_sk", "s_store_id", "s_store_name", "s_company_name",
@@ -152,6 +185,8 @@ COLUMNS = {
 }
 
 _CHUNK_ROWS = 1 << 25
+# seeds of the streams beside the main generator, mixed with ``seed``
+_STREAM_ITEM, _STREAM_CATALOG, _STREAM_WEB = 1, 2, 3
 
 
 def _step_count(sf: float, steps, fact: bool) -> int:
@@ -204,6 +239,13 @@ def _days_from_civil(y: int, m: int, d: int) -> int:
 def _ctype(table: str, column: str) -> DType:
     t = get_schemas()[table].column(column).dtype
     return DType(t.kind, precision=t.precision, scale=t.scale)
+
+
+def _stream(seed: int, tag: int, device) -> torch.Generator:
+    """A generator of its own for stream ``tag``, derived from ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed * 1000003 + tag) % (1 << 63))
+    return gen
 
 
 def _uniform_int(lo, hi, n: int, gen, device) -> torch.Tensor:
@@ -262,6 +304,8 @@ def _date_dim(device) -> Table:
         "d_qoy": Column((m - 1) // 3 + 1, _ctype("date_dim", "d_qoy")),
         "d_day_name": Column(day_codes, _ctype("date_dim", "d_day_name"),
                              None, day_dict),
+        "d_week_seq": Column((jd - _DATE_DIM_FIRST_JD) // 7 + 1,
+                             _ctype("date_dim", "d_week_seq")),
     })
 
 
@@ -341,7 +385,9 @@ def _reason(n: int, device) -> Table:
     })
 
 
-def _item(n: int, gen, device) -> Table:
+def _item(n: int, gen, extra, device) -> Table:
+    """gen_item's columns: those of the main generator ``gen`` first, in
+    their order, then size, color and units from the stream ``extra``."""
     cat = _weighted_pick(_CATEGORY_WEIGHTS, n, gen, device)
     cls = _weighted_pick(_CLASS_WEIGHTS, n, gen, device)
     brand = _uniform_int(1, _BRANDS_PER_CLASS, n, gen, device)
@@ -369,6 +415,14 @@ def _item(n: int, gen, device) -> Table:
     name_codes, name_dict = _string_column(
         [f"{_COLORS[c]}{sk}" for sk, c in enumerate(color.tolist(), 1)],
         every)
+    manu_codes, manu_dict = _string_column(
+        [f"manu#{m}" for m in range(1, 1001)], manufact - 1)
+    size_codes, size_dict = _string_column(
+        _SIZES, _uniform_int(0, len(_SIZES) - 1, n, extra, device))
+    color_codes, color_dict = _string_column(
+        _COLORS, _weighted_pick(_COLOR_WEIGHTS, n, extra, device))
+    units_codes, units_dict = _string_column(
+        _UNITS, _uniform_int(0, len(_UNITS) - 1, n, extra, device))
     ct = lambda c: _ctype("item", c)  # noqa: E731
     return Table({
         "i_item_sk": Column(torch.arange(1, n + 1, dtype=torch.int32,
@@ -387,7 +441,45 @@ def _item(n: int, gen, device) -> Table:
         "i_manager_id": Column(manager, ct("i_manager_id")),
         "i_product_name": Column(name_codes, ct("i_product_name"), None,
                                  name_dict),
+        "i_manufact": Column(manu_codes, ct("i_manufact"), None, manu_dict),
+        "i_color": Column(color_codes, ct("i_color"), None, color_dict),
+        "i_units": Column(units_codes, ct("i_units"), None, units_dict),
+        "i_size": Column(size_codes, ct("i_size"), None, size_dict),
     })
+
+
+def _chance(p: float, k: int, gen, device) -> torch.Tensor:
+    return torch.rand(k, generator=gen, device=device,
+                      dtype=torch.float64) < p
+
+
+def _sale_dates(k: int, gen, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """gen_sale's sold date of ``k`` sales: (Julian day as int32, valid).
+    2% NULL; uniform over the sales window, with 30% of sales moved into
+    Nov/Dec of their year."""
+    years = range(1998, 2004)
+    # Nov 1 of each sales year, as a Julian day (holiday-season skew)
+    nov1 = torch.tensor([_days_from_civil(y, 11, 1) + _JD_EPOCH_1970
+                         for y in years], dtype=torch.int64, device=device)
+    ok = ~_chance(0.02, k, gen, device)
+    jd = _uniform_int(_SALES_FIRST_JD, _SALES_LAST_JD, k, gen, device)
+    holiday = _chance(0.30, k, gen, device)
+    hol_off = _uniform_int(0, 60, k, gen, device)
+    y, _, _ = civil_from_days(jd - _JD_EPOCH_1970)
+    y = torch.clamp(y, max=2002)   # Nov 2003 exceeds the window
+    jd = torch.where(holiday, nov1[y - years[0]] + hol_off, jd)
+    return jd.to(torch.int32), ok
+
+
+def _sale_prices(k: int, gen, device):
+    """gen_sale's quantity and cents: (quantity 1..100, wholesale cost
+    1.00..100.00, list price with a markup up to 100%, sales price 20..100%
+    of list)."""
+    q = _uniform_int(1, 100, k, gen, device)
+    wholesale = _uniform_int(100, 10000, k, gen, device)
+    lst = wholesale + _uniform_int(0, wholesale, k, gen, device)
+    sales = (lst * _uniform_int(20, 100, k, gen, device)) // 100
+    return q, wholesale, lst, sales
 
 
 def _store_sales(n: int, sz: Dict[str, int], gen, device) -> Table:
@@ -398,41 +490,25 @@ def _store_sales(n: int, sz: Dict[str, int], gen, device) -> Table:
     date_ok, cust_ok, store_ok = (empty(torch.bool) for _ in range(3))
     quantity, sales_price, ext_discount, ext_sales, net_paid, net_profit = (
         empty(torch.int64) for _ in range(6))
-    # Nov 1 of each sales year, as a Julian day (holiday-season skew)
-    years = range(1998, 2004)
-    nov1 = torch.tensor([_days_from_civil(y, 11, 1) + _JD_EPOCH_1970
-                         for y in years], dtype=torch.int64, device=device)
-
-    def chance(p: float, k: int) -> torch.Tensor:
-        return torch.rand(k, generator=gen, device=device,
-                          dtype=torch.float64) < p
+    wholesale_cost, list_price, coupon_amt = (
+        empty(torch.int64) for _ in range(3))
 
     for b in range(0, n, _CHUNK_ROWS):
         e = min(n, b + _CHUNK_ROWS)
         k = e - b
-        date_ok[b:e] = ~chance(0.02, k)
-        jd = _uniform_int(_SALES_FIRST_JD, _SALES_LAST_JD, k, gen, device)
-        holiday = chance(0.30, k)
-        hol_off = _uniform_int(0, 60, k, gen, device)
-        y, _, _ = civil_from_days(jd - _JD_EPOCH_1970)
-        y = torch.clamp(y, max=2002)   # Nov 2003 exceeds the window
-        jd = torch.where(holiday, nov1[y - years[0]] + hol_off, jd)
-        date_sk[b:e] = jd.to(torch.int32)
+        date_sk[b:e], date_ok[b:e] = _sale_dates(k, gen, device)
         time_sk[b:e] = _uniform_int(0, 86399, k, gen, device).to(torch.int32)
         item_sk[b:e] = _zipf(sz["item"], k, gen, device).to(torch.int32)
-        cust_ok[b:e] = ~chance(0.03, k)
+        cust_ok[b:e] = ~_chance(0.03, k, gen, device)
         cust_sk[b:e] = _zipf(sz["customer"], k, gen, device).to(torch.int32)
         hdemo_sk[b:e] = _uniform_int(
             1, sz["household_demographics"], k, gen, device).to(torch.int32)
-        store_ok[b:e] = ~chance(0.02, k)
+        store_ok[b:e] = ~_chance(0.02, k, gen, device)
         store_sk[b:e] = _uniform_int(1, sz["store"], k, gen,
                                      device).to(torch.int32)
-        q = _uniform_int(1, 100, k, gen, device)
-        wholesale = _uniform_int(100, 10000, k, gen, device)
-        lst = wholesale + _uniform_int(0, wholesale, k, gen, device)
-        sales = (lst * _uniform_int(20, 100, k, gen, device)) // 100
+        q, wholesale, lst, sales = _sale_prices(k, gen, device)
         ext = q * sales
-        coupon = torch.where(chance(0.15, k),
+        coupon = torch.where(_chance(0.15, k, gen, device),
                              _uniform_int(0, ext // 2, k, gen, device), 0)
         quantity[b:e] = q
         sales_price[b:e] = sales
@@ -440,6 +516,9 @@ def _store_sales(n: int, sz: Dict[str, int], gen, device) -> Table:
         ext_sales[b:e] = ext
         net_paid[b:e] = ext - coupon
         net_profit[b:e] = ext - coupon - q * wholesale
+        wholesale_cost[b:e] = wholesale
+        list_price[b:e] = lst
+        coupon_amt[b:e] = coupon
     ticket = torch.arange(n, dtype=torch.int64, device=device) // \
         _TICKET_SPREAD + 1
     ct = lambda c: _ctype("store_sales", c)  # noqa: E731
@@ -458,7 +537,56 @@ def _store_sales(n: int, sz: Dict[str, int], gen, device) -> Table:
         "ss_ext_sales_price": Column(ext_sales, ct("ss_ext_sales_price")),
         "ss_net_paid": Column(net_paid, ct("ss_net_paid")),
         "ss_net_profit": Column(net_profit, ct("ss_net_profit")),
+        "ss_wholesale_cost": Column(wholesale_cost, ct("ss_wholesale_cost")),
+        "ss_list_price": Column(list_price, ct("ss_list_price")),
+        "ss_coupon_amt": Column(coupon_amt, ct("ss_coupon_amt")),
     })
+
+
+def _channel_sales(table: str, n: int, sz: Dict[str, int], gen,
+                   device) -> Table:
+    """catalog_sales or web_sales, reduced to the columns of
+    :data:`COLUMNS`: gen_sale's sold date, Zipf item and extended sales
+    price, and the ship-to key of gen_catalog_sales (an address uniform
+    over customer_address, never NULL) or gen_web_sales (the sale's
+    customer, NULL where it is; otherwise that Zipf customer 85% of the
+    time, a uniform one else)."""
+    date_sk = torch.empty(n, dtype=torch.int32, device=device)
+    item_sk = torch.empty(n, dtype=torch.int32, device=device)
+    ship_sk = torch.empty(n, dtype=torch.int32, device=device)
+    date_ok = torch.empty(n, dtype=torch.bool, device=device)
+    ship_ok = torch.empty(n, dtype=torch.bool, device=device) \
+        if table == "web_sales" else None
+    ext_sales = torch.empty(n, dtype=torch.int64, device=device)
+    for b in range(0, n, _CHUNK_ROWS):
+        e = min(n, b + _CHUNK_ROWS)
+        k = e - b
+        date_sk[b:e], date_ok[b:e] = _sale_dates(k, gen, device)
+        item_sk[b:e] = _zipf(sz["item"], k, gen, device).to(torch.int32)
+        if table == "web_sales":
+            ship_ok[b:e] = ~_chance(0.03, k, gen, device)
+            cust = _zipf(sz["customer"], k, gen, device)
+            other = _uniform_int(1, sz["customer"], k, gen, device)
+            ship = torch.where(_chance(0.85, k, gen, device), cust, other)
+        else:
+            ship = _uniform_int(1, sz["customer_address"], k, gen, device)
+        ship_sk[b:e] = ship.to(torch.int32)
+        q, _, _, sales = _sale_prices(k, gen, device)
+        ext_sales[b:e] = q * sales
+    ct = lambda c: _ctype(table, c)  # noqa: E731
+    p = table[0] + "s_"
+    cols = {p + "sold_date_sk": Column(date_sk, ct(p + "sold_date_sk"),
+                                       date_ok)}
+    if table == "web_sales":
+        cols[p + "item_sk"] = Column(item_sk, ct(p + "item_sk"))
+        cols[p + "ship_customer_sk"] = Column(
+            ship_sk, ct(p + "ship_customer_sk"), ship_ok)
+    else:
+        cols[p + "ship_addr_sk"] = Column(ship_sk, ct(p + "ship_addr_sk"))
+        cols[p + "item_sk"] = Column(item_sk, ct(p + "item_sk"))
+    cols[p + "ext_sales_price"] = Column(ext_sales,
+                                         ct(p + "ext_sales_price"))
+    return Table(cols)
 
 
 def return_parent_rows(n_ret: int, n_sales: int, device) -> torch.Tensor:
@@ -500,11 +628,16 @@ def generate(scale: float, seed: int, device) -> Catalog:
     cat.register("date_dim", _date_dim(device))
     cat.register("time_dim", _time_dim(device))
     cat.register("household_demographics", _household_demographics(device))
-    cat.register("item", _item(n["item"], gen, device))
+    cat.register("item", _item(n["item"], gen,
+                               _stream(seed, _STREAM_ITEM, device), device))
     cat.register("store", _store(n["store"], gen, device))
     cat.register("reason", _reason(n["reason"], device))
     sales = _store_sales(n["store_sales"], n, gen, device)
     cat.register("store_sales", sales)
     cat.register("store_returns", _store_returns(
         n["store_returns"], sales, n["reason"], gen, device))
+    for table, tag in (("catalog_sales", _STREAM_CATALOG),
+                       ("web_sales", _STREAM_WEB)):
+        cat.register(table, _channel_sales(
+            table, n[table], n, _stream(seed, tag, device), device))
     return cat

@@ -356,9 +356,10 @@ def _any_none(xs) -> bool:
 def _plan_fp(o, out: Optional[list] = None) -> Optional[str]:
     """Structural fingerprint of a plan/expression tree
     (jaxexec._plan_fp).  Unlike ``repr`` it covers every dataclass field
-    (Literal's repr hides its ctype).  The port uses it only to key
-    aggregate leaves within one plan, so an inline table is keyed by the
-    identity of its table, which lives as long as the plan."""
+    (Literal's repr hides its ctype).  The port uses it only within one
+    plan (aggregate leaves, the plan-subtree memo), so an inline table is
+    keyed by the identity of its table, which lives as long as the
+    plan."""
     top = out is None
     if top:
         out = []
@@ -387,13 +388,54 @@ def _plan_fp(o, out: Optional[list] = None) -> Optional[str]:
     return None
 
 
+# plan nodes that run once a query when the plan holds them more than
+# once (jaxexec.JaxExecutor._MEMO_NODES): the planner deep-copies each CTE
+# reference, so identical subtrees are found by fingerprint, not identity
+_MEMO_NODES = (lp.Join, lp.Aggregate, lp.SetOp, lp.Window, lp.Distinct,
+               lp.Sort)
+
+
+def _memo_key(p: lp.Plan) -> Optional[str]:
+    """The memo key of a memo node, or None (not a memo node, or a leaf
+    with no content-based fingerprint: that node is not memoized)."""
+    if not isinstance(p, _MEMO_NODES):
+        return None
+    try:
+        return _plan_fp(p)
+    except TypeError:
+        return None
+
+
+def _memo_uses(p: lp.Plan) -> Dict[str, int]:
+    """Memo key -> times the executor will ask for it, for every memo
+    subtree of ``p`` asked for at least twice.  The walk follows the
+    executor's order: the first occurrence of a key runs (and is walked
+    into), each later one is a memo hit whose subtree never runs, so it
+    is not walked into.  The keys are exactly where the reference's memo
+    hits, and nothing else is retained.  Subquery plans live in
+    expressions, not children: each is counted on its own."""
+    uses: Dict[str, int] = {}
+
+    def walk(q: lp.Plan):
+        key = _memo_key(q)
+        if key is not None:
+            uses[key] = uses.get(key, 0) + 1
+            if uses[key] > 1:
+                return
+        for c in q.children():
+            walk(c)
+
+    walk(p)
+    return {k: n for k, n in uses.items() if n > 1}
+
+
 class Unsupported(Exception):
     """Raised when an expr/plan node has no port yet.
 
     ``code`` is the static-analyzer diagnostic (NDS2xx, see
     ndstpu/analysis/diagnostics.py) jaxexec raises at the same place;
     nodes jaxexec runs but the port does not yet stay uncoded.  ``node``
-    names the plan node that refused (``"SetOp"``, ``"Distinct"``, ...):
+    names the plan node that refused (``"Window"``, ``"Join"``, ...):
     :meth:`TorchExecutor.execute` sets it on the way out when the raise
     site did not."""
 
@@ -1239,7 +1281,16 @@ class TorchExecutor:
     ``n_syncs`` counts the host syncs of the last query: each
     data-dependent capacity (join fan-out, compaction), each bounds
     check, each branch decision and each subquery result reads back from
-    the device once."""
+    the device once.  ``n_memo_hits`` counts the memo hits of the last
+    query.
+
+    The plan-subtree memo (jaxexec's ``_tree_cache``) runs each repeated
+    Join/Aggregate/SetOp/Window/Distinct/Sort subtree once a query.  It
+    keeps a result only when the plan asks for its key again
+    (:func:`_memo_uses`), and only until the last of those asks, so a
+    fact-sized join output is not held past its consumers.  A subquery
+    runs in a memo of its own.  No cached table is written in place; a
+    lazy column materializing its view writes the same values."""
 
     # the segment-sum kernel takes aggregates over at most this many
     # segments (jaxexec._PALLAS_SEGS_MAX, kept so the port routes the same
@@ -1262,17 +1313,40 @@ class TorchExecutor:
         self.groupby_mode = groupby
         self._device_cache: Dict[str, Tuple[int, DTable]] = {}
         self.n_syncs = 0
+        self.n_memo_hits = 0
         # per-query subquery memo: expr ids are only stable within one plan
         self._subq_cache: Dict[int, ex.Expr] = {}
+        # per-query plan-subtree memo: key -> result, and key -> the asks
+        # for it still to come (the key is dropped after its last)
+        self._memo: Dict[str, DTable] = {}
+        self._memo_left: Dict[str, int] = {}
 
     # -- public --------------------------------------------------------------
 
     def execute_to_host(self, p: lp.Plan) -> Table:
-        self.n_syncs = 0
+        self.n_syncs = self.n_memo_hits = 0
         self._subq_cache = {}
-        return to_host(self.execute(p))
+        self._memo, self._memo_left = {}, _memo_uses(p)
+        try:
+            return to_host(self.execute(p))
+        finally:
+            self._memo, self._memo_left = {}, {}
 
     def execute(self, p: lp.Plan) -> DTable:
+        key = _memo_key(p) if self._memo_left else None
+        if key not in self._memo_left:
+            return self._execute_node(p)
+        self._memo_left[key] -= 1
+        out = self._memo.get(key)
+        if out is None:
+            out = self._memo[key] = self._execute_node(p)
+        else:
+            self.n_memo_hits += 1
+            if self._memo_left[key] == 0:
+                del self._memo[key], self._memo_left[key]
+        return out
+
+    def _execute_node(self, p: lp.Plan) -> DTable:
         node = type(p).__name__
         m = getattr(self, "_exec_" + node.lower(), None)
         if m is None:
@@ -1311,7 +1385,16 @@ class TorchExecutor:
             hit = self._subq_cache.get(id(e))
             if hit is not None:
                 return hit
-            t = to_host(self.execute(e.plan))
+            # a memo of its own (jaxexec isolates it the same way): no
+            # main-plan subtree may hit a table cached while a subquery
+            # ran, or a compiled replay, which skips subqueries, would
+            # fall out of step with its discovery
+            outer = self._memo, self._memo_left
+            self._memo, self._memo_left = {}, _memo_uses(e.plan)
+            try:
+                t = to_host(self.execute(e.plan))
+            finally:
+                self._memo, self._memo_left = outer
             self.n_syncs += 1
             col = t.columns[t.column_names[0]]
             if e.kind == "scalar":
@@ -1622,23 +1705,9 @@ class TorchExecutor:
             gid, ngseg, out_alive, out_cols = direct
             use_kernel = self.groupby_mode == "kernel"
         elif key_cols:
-            keys = [_key_col(c, dt.alive) for _, c in key_cols]
-            gid, order, newgrp = _group_ids(keys)
+            gid, rep, out_alive = self._sort_groups(
+                [c for _, c in key_cols], dt.alive)
             ngseg = cap
-            # representative (first-in-sorted-order) row per group
-            gid_sorted = torch.cumsum(newgrp, 0, dtype=torch.int64) - 1
-            first_pos = torch.full((cap,), cap, dtype=torch.int64,
-                                   device=self.device)
-            first_pos.scatter_reduce_(0, gid_sorted,
-                                      _iota(cap, self.device, torch.int64),
-                                      "amin")
-            rep = order[torch.clamp(first_pos, 0, cap - 1)]
-            galive = _segment_sum(dt.alive.to(torch.int32), gid, ngseg) > 0
-            # group table alive mask: one slot per distinct gid
-            n_groups_mask = torch.zeros(cap, dtype=torch.bool,
-                                        device=self.device)
-            n_groups_mask[gid] = True
-            out_alive = n_groups_mask & galive
             out_cols = _gather_cols(dict(key_cols), rep, out_alive)
         else:
             # keyless (scalar) aggregate: two segments (alive rows 0,
@@ -1652,6 +1721,25 @@ class TorchExecutor:
                 dt, evl, self._resolve_subqueries(e), gid, ngseg, out_alive,
                 use_kernel, grouping_ctx)
         return DTable(out_cols, out_alive)
+
+    def _sort_groups(self, cols: List[DCol], alive: torch.Tensor):
+        """Group ids by one sort over ``cols``: (gid, each group's
+        representative row, the first of the group in sorted order, and
+        the group table's alive mask, one slot per group that has a live
+        row), all at the input's capacity."""
+        cap = int(alive.shape[0])
+        gid, order, newgrp = _group_ids([_key_col(c, alive) for c in cols])
+        gid_sorted = torch.cumsum(newgrp, 0, dtype=torch.int64) - 1
+        first_pos = torch.full((cap,), cap, dtype=torch.int64,
+                               device=self.device)
+        first_pos.scatter_reduce_(0, gid_sorted,
+                                  _iota(cap, self.device, torch.int64),
+                                  "amin")
+        rep = order[torch.clamp(first_pos, 0, cap - 1)]
+        galive = _segment_sum(alive.to(torch.int32), gid, cap) > 0
+        slot_used = torch.zeros(cap, dtype=torch.bool, device=self.device)
+        slot_used[gid] = True
+        return gid, rep, slot_used & galive
 
     def _direct_group_ids(self, key_cols, alive):
         """Linearized group ids for small host-known key domains.
@@ -1811,8 +1899,9 @@ class TorchExecutor:
         ones = torch.ones(ngseg, dtype=torch.bool, device=self.device)
         if a.distinct and func in ("count", "sum", "avg") and \
                 not isinstance(a.arg, ex.Star):
-            raise Unsupported(f"{func}(distinct) is not ported yet",
-                              code="NDS207")
+            # distinct is a no-op for min/max; count/sum/avg count each
+            # (group, value) pair once
+            return self._agg_distinct(dt, evl, a, gid, ngseg)
         if isinstance(a.arg, ex.Star):
             counts = _segment_sum(alive.to(torch.int32), gid, ngseg)
             return DCol(counts.to(torch.int64), ones, INT64)
@@ -1890,6 +1979,96 @@ class TorchExecutor:
                 torch.sqrt(var)
             return DCol(data, ok, FLOAT64)
         raise Unsupported(f"aggregate {func}", code="NDS207")
+
+    # presence-bitmap distinct: ngseg x domain slots (jaxexec's
+    # _DISTINCT_BITMAP_SLOTS); 1 << 22 int32 slots are 16 MiB, freed with
+    # the aggregate
+    _DISTINCT_BITMAP_SLOTS = 1 << 22
+
+    def _agg_distinct(self, dt: DTable, evl: JEval, a: ex.AggExpr, gid,
+                      ngseg: int) -> DCol:
+        """count/sum/avg(DISTINCT x) (jaxexec._agg_distinct).
+
+        An int or decimal column with static bounds whose ``ngseg x
+        domain`` slots fit :attr:`_DISTINCT_BITMAP_SLOTS` takes a presence
+        bitmap (:meth:`_agg_distinct_bitmap`), no sort.  The choice reads
+        only static metadata (kind, bounds, ``ngseg``), so a compiled
+        replay makes the same one.  Everything else sorts by (group,
+        value), keeps the first row of each distinct pair and sums by
+        segment: decimal and int sums exact in int64, float sums in
+        float64."""
+        func = a.func
+        c = evl.eval(a.arg)
+        valid = c.valid & dt.alive
+        if c.ctype.kind in ("decimal", "int32", "int64") and \
+                c.bounds is not None:
+            lo, hi = c.bounds
+            domain = int(hi - lo + 1)
+            if 0 < domain and \
+                    ngseg * domain <= self._DISTINCT_BITMAP_SLOTS:
+                return self._agg_distinct_bitmap(c, valid, gid, ngseg, lo,
+                                                 domain, func)
+        vkey = _key_col(c, dt.alive)
+        order = _lexsort_order([gid, vkey])
+        gid_s, vkey_s = gid[order], vkey[order]
+        first = torch.ones(dt.capacity, dtype=torch.bool, device=self.device)
+        first[1:] = (gid_s[1:] != gid_s[:-1]) | (vkey_s[1:] != vkey_s[:-1])
+        uniq = first & valid[order]
+        cnts = _segment_sum(uniq.to(torch.int64), gid_s, ngseg)
+        if func == "count":
+            return DCol(cnts, torch.ones(ngseg, dtype=torch.bool,
+                                         device=self.device), INT64)
+        data_s = c.data[order]
+        if c.ctype.kind in ("decimal", "int32", "int64"):
+            sums = _segment_sum(data_s.to(torch.int64).masked_fill(~uniq, 0),
+                                gid_s, ngseg)
+        else:
+            sums = _segment_sum(
+                data_s.to(torch.float64).masked_fill(~uniq, 0.0), gid_s,
+                ngseg)
+        return self._distinct_result(c, func, sums, cnts)
+
+    def _agg_distinct_bitmap(self, c: DCol, valid, gid, ngseg: int,
+                             lo: int, domain: int, func: str) -> DCol:
+        """Distinct (group, value) pairs as a presence bitmap of ``ngseg
+        x domain`` slots: each row marks slot ``gid * domain + value -
+        lo`` (computed in int64), rows that are invalid or outside the
+        bounds mark a trash slot; counts and sums are row reductions of
+        the bitmap.  Every row writes the same value to a slot, so the
+        marks need no atomics and come out the same in any order."""
+        raw = c.data.to(torch.int64) - lo
+        use = valid & (raw >= 0) & (raw < domain)
+        idx = gid.to(torch.int64) * domain + torch.clamp(raw, 0, domain - 1)
+        idx = idx.masked_fill(~use, ngseg * domain)     # trash slot
+        seen = torch.zeros(ngseg * domain + 1, dtype=torch.int32,
+                           device=self.device)
+        seen[idx] = use.to(torch.int32)
+        seen2 = seen[:-1].view(ngseg, domain)
+        cnts = seen2.sum(dim=1, dtype=torch.int64)
+        if func == "count":
+            return DCol(cnts, torch.ones(ngseg, dtype=torch.bool,
+                                         device=self.device), INT64)
+        slot_vals = lo + _iota(domain, self.device, torch.int64)
+        sums = (seen2.to(torch.int64) * slot_vals[None, :]).sum(dim=1)
+        return self._distinct_result(c, func, sums, cnts)
+
+    @staticmethod
+    def _distinct_result(c: DCol, func: str, sums: torch.Tensor,
+                         cnts: torch.Tensor) -> DCol:
+        """sum or avg of the distinct values from their per-segment sums
+        (int64 for decimal and int arguments, float64 otherwise) and
+        counts, typed as the reference types them."""
+        got = cnts > 0
+        if func == "sum":
+            if c.ctype.kind == "decimal":
+                return DCol(sums, got, decimal(38, c.ctype.scale))
+            if c.ctype.kind in ("int32", "int64"):
+                return DCol(sums, got, INT64)
+            return DCol(sums, got, FLOAT64)
+        mean = sums.to(torch.float64) / torch.clamp(cnts, min=1)
+        if c.ctype.kind == "decimal":
+            mean = _true_div(mean, 10 ** c.ctype.scale)
+        return DCol(mean, got, FLOAT64)
 
     # -- window --------------------------------------------------------------
 
@@ -2091,6 +2270,54 @@ class TorchExecutor:
                 out = out.to(arg.data.dtype)
             return DCol(out, got, arg.ctype, arg.dictionary)
         raise Unsupported(f"running window {w.func}", code="NDS209")
+
+    # -- distinct and set operations ------------------------------------------
+
+    def _exec_distinct(self, p: lp.Distinct) -> DTable:
+        return self._distinct_of(self.execute(p.child))
+
+    def _distinct_of(self, dt: DTable) -> DTable:
+        """One row per distinct row value (jaxexec._distinct_of): the
+        sort group-by over every column, no aggregates.  The result keeps
+        its input's capacity and bounds."""
+        for c in dt.columns.values():
+            if c.ctype.kind not in ("int32", "int64", "decimal", "date",
+                                    "string", "bool", "float64"):
+                raise Unsupported("distinct column type")
+        _, rep, out_alive = self._sort_groups(list(dt.columns.values()),
+                                              dt.alive)
+        return DTable(_gather_cols(dt.columns, rep, out_alive), out_alive)
+
+    def _exec_setop(self, p: lp.SetOp) -> DTable:
+        """UNION [ALL], INTERSECT and EXCEPT (jaxexec._exec_setop) over
+        the two sides' vertical concatenation, the right side's columns
+        renamed to the left's.  INTERSECT and EXCEPT have distinct
+        semantics (Spark): the first left occurrence of each row value
+        that is (is not) also on the right."""
+        lt = self.execute(p.left)
+        rt = self.execute(p.right)
+        rt = DTable(dict(zip(lt.column_names, rt.columns.values())),
+                    rt.alive)
+        both = self._vconcat(lt, rt)
+        if p.kind == "union":
+            return both if p.all else self._distinct_of(both)
+        cap = both.capacity
+        keys = [_key_col(c, both.alive) for c in both.columns.values()]
+        gid = _group_ids(keys)[0]
+        pos = _iota(cap, self.device, torch.int64)
+        is_left = pos < lt.capacity
+        in_left = _segment_sum((both.alive & is_left).to(torch.int32), gid,
+                               cap) > 0
+        in_right = _segment_sum((both.alive & ~is_left).to(torch.int32),
+                                gid, cap) > 0
+        keepg = (in_left & in_right) if p.kind == "intersect" else \
+            (in_left & ~in_right)
+        lidx = torch.where(both.alive & is_left, pos, cap)
+        firstl = torch.full((cap,), cap, dtype=torch.int64,
+                            device=self.device)
+        firstl.scatter_reduce_(0, gid.to(torch.int64), lidx, "amin")
+        keep = (firstl[gid] == pos) & keepg[gid] & both.alive & is_left
+        return DTable(both.columns, keep)
 
     # -- join ----------------------------------------------------------------
 

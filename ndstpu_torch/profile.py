@@ -3,11 +3,11 @@
     python -m ndstpu_torch.profile [--scale SF] [--seed N] [--out DIR]
 
 Generates the warehouse on the card (as ``chip_smoke.py`` does), runs each
-of the thirteen queries of :mod:`ndstpu_torch.queries` once to warm up,
+of the seventeen queries of :mod:`ndstpu_torch.queries` once to warm up,
 then once under ``torch.profiler`` (CPU and CUDA activities).  Prints one
 JSON line per query: wall ms, summed device ms, the device's idle share of
-the wall time, host syncs, and the top operators and kernels by device
-time; writes one Chrome trace per query into ``--out``.
+the wall time, host syncs, memo hits, and the top operators and kernels by
+device time; writes one Chrome trace per query into ``--out``.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ndstpu_torch import datagen
 from ndstpu_torch.engine.session import Session
-from ndstpu_torch.queries import QUERIES, STORE_QUERIES, WINDOW_QUERIES
+from ndstpu_torch.queries import (QUERIES, SETOP_QUERIES, STORE_QUERIES,
+                                  WINDOW_QUERIES)
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -72,7 +73,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip()
     cat = datagen.generate(args.scale, args.seed, "cuda")
     sess = Session(cat, device="cuda")
-    for q, sql in {**QUERIES, **STORE_QUERIES, **WINDOW_QUERIES}.items():
+    for q, sql in {**QUERIES, **STORE_QUERIES, **WINDOW_QUERIES,
+                   **SETOP_QUERIES}.items():
         sess.sql(sql)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -87,7 +89,8 @@ def main(argv=None) -> int:
             "query": q, "scale": args.scale, "card": card,
             "wall_ms": wall_ms, "device_ms": b["device_ms"],
             "device_idle_share": max(0.0, 1 - b["device_ms"] / wall_ms),
-            "host_syncs": sess.executor.n_syncs, **{
+            "host_syncs": sess.executor.n_syncs,
+            "memo_hits": sess.executor.n_memo_hits, **{
                 k: v for k, v in b.items() if k != "device_ms"}}),
             flush=True)
     return 0

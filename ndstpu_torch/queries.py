@@ -2,8 +2,9 @@
 
 Each is an NDS template rendered as ``ndstpu/queries/streamgen.py``
 renders it (rngseed 07291122510, stream 0): the q3 family's star-join
-reports (``QUERIES``), the store-channel reports (``STORE_QUERIES``) and
-the store-channel rollup and window reports (``WINDOW_QUERIES``).
+reports (``QUERIES``), the store-channel reports (``STORE_QUERIES``),
+the store-channel rollup and window reports (``WINDOW_QUERIES``) and the
+set-operation and distinct reports (``SETOP_QUERIES``).
 ``chip_smoke.py`` and :mod:`ndstpu_torch.profile` run them.
 """
 
@@ -259,4 +260,185 @@ where ss_item_sk = i_item_sk
                  and (cast('1999-02-22' as date) + interval 30 days)
 group by i_item_id, i_item_desc, i_category, i_class, i_current_price
 order by i_category, i_class, i_item_id, i_item_desc, revenueratio""",
+}
+
+# set operations, DISTINCT and distinct aggregates: q2 (a UNION ALL of the
+# web and catalog channels under a CTE referenced twice), q28 (six
+# count(distinct) branches over store_sales), q41 (DISTINCT with a
+# correlated count) and q76 (UNION ALL of the three channels)
+SETOP_QUERIES = {
+    "q2": """with wscs as
+ (select sold_date_sk
+        ,sales_price
+  from (select ws_sold_date_sk sold_date_sk
+              ,ws_ext_sales_price sales_price
+        from web_sales
+        union all
+        select cs_sold_date_sk sold_date_sk
+              ,cs_ext_sales_price sales_price
+        from catalog_sales) u),
+ wswscs as
+ (select d_week_seq,
+        sum(case when (d_day_name='Sunday') then sales_price else null end) sun_sales,
+        sum(case when (d_day_name='Monday') then sales_price else null end) mon_sales,
+        sum(case when (d_day_name='Tuesday') then sales_price else null end) tue_sales,
+        sum(case when (d_day_name='Wednesday') then sales_price else null end) wed_sales,
+        sum(case when (d_day_name='Thursday') then sales_price else null end) thu_sales,
+        sum(case when (d_day_name='Friday') then sales_price else null end) fri_sales,
+        sum(case when (d_day_name='Saturday') then sales_price else null end) sat_sales
+ from wscs
+     ,date_dim
+ where d_date_sk = sold_date_sk
+ group by d_week_seq)
+ select d_week_seq1
+       ,round(sun_sales1/sun_sales2,2) r_sun
+       ,round(mon_sales1/mon_sales2,2) r_mon
+       ,round(tue_sales1/tue_sales2,2) r_tue
+       ,round(wed_sales1/wed_sales2,2) r_wed
+       ,round(thu_sales1/thu_sales2,2) r_thu
+       ,round(fri_sales1/fri_sales2,2) r_fri
+       ,round(sat_sales1/sat_sales2,2) r_sat
+ from
+ (select wswscs.d_week_seq d_week_seq1
+        ,sun_sales sun_sales1
+        ,mon_sales mon_sales1
+        ,tue_sales tue_sales1
+        ,wed_sales wed_sales1
+        ,thu_sales thu_sales1
+        ,fri_sales fri_sales1
+        ,sat_sales sat_sales1
+  from wswscs,date_dim
+  where date_dim.d_week_seq = wswscs.d_week_seq and
+        d_year = 2001) y,
+ (select wswscs.d_week_seq d_week_seq2
+        ,sun_sales sun_sales2
+        ,mon_sales mon_sales2
+        ,tue_sales tue_sales2
+        ,wed_sales wed_sales2
+        ,thu_sales thu_sales2
+        ,fri_sales fri_sales2
+        ,sat_sales sat_sales2
+  from wswscs,date_dim
+  where date_dim.d_week_seq = wswscs.d_week_seq and
+        d_year = 2001+1) z
+ where d_week_seq1=d_week_seq2-53
+ order by d_week_seq1""",
+    "q28": """select *
+from (select avg(ss_list_price) b1_lp, count(ss_list_price) b1_cnt,
+             count(distinct ss_list_price) b1_cntd
+      from store_sales
+      where ss_quantity between 0 and 5
+        and (ss_list_price between 180 and 180 + 10
+             or ss_coupon_amt between 3109 and 3109 + 1000
+             or ss_wholesale_cost between 62 and 62 + 20)) b1,
+     (select avg(ss_list_price) b2_lp, count(ss_list_price) b2_cnt,
+             count(distinct ss_list_price) b2_cntd
+      from store_sales
+      where ss_quantity between 6 and 10
+        and (ss_list_price between 180 and 180 + 10
+             or ss_coupon_amt between 3109 and 3109 + 1000
+             or ss_wholesale_cost between 62 and 62 + 20)) b2,
+     (select avg(ss_list_price) b3_lp, count(ss_list_price) b3_cnt,
+             count(distinct ss_list_price) b3_cntd
+      from store_sales
+      where ss_quantity between 11 and 15
+        and (ss_list_price between 180 and 180 + 10
+             or ss_coupon_amt between 3109 and 3109 + 1000
+             or ss_wholesale_cost between 62 and 62 + 20)) b3,
+     (select avg(ss_list_price) b4_lp, count(ss_list_price) b4_cnt,
+             count(distinct ss_list_price) b4_cntd
+      from store_sales
+      where ss_quantity between 16 and 20
+        and (ss_list_price between 180 and 180 + 10
+             or ss_coupon_amt between 3109 and 3109 + 1000
+             or ss_wholesale_cost between 62 and 62 + 20)) b4,
+     (select avg(ss_list_price) b5_lp, count(ss_list_price) b5_cnt,
+             count(distinct ss_list_price) b5_cntd
+      from store_sales
+      where ss_quantity between 21 and 25
+        and (ss_list_price between 180 and 180 + 10
+             or ss_coupon_amt between 3109 and 3109 + 1000
+             or ss_wholesale_cost between 62 and 62 + 20)) b5,
+     (select avg(ss_list_price) b6_lp, count(ss_list_price) b6_cnt,
+             count(distinct ss_list_price) b6_cntd
+      from store_sales
+      where ss_quantity between 26 and 30
+        and (ss_list_price between 180 and 180 + 10
+             or ss_coupon_amt between 3109 and 3109 + 1000
+             or ss_wholesale_cost between 62 and 62 + 20)) b6
+limit 100""",
+    "q41": """select distinct(i_product_name)
+ from item i1
+ where i_manufact_id between 684 and 684+40
+   and (select count(*) as item_cnt
+        from item
+        where (i_manufact = i1.i_manufact and
+        ((i_category = 'Women' and
+        (i_color = 'powder' or i_color = 'khaki') and
+        (i_units = 'Ounce' or i_units = 'Oz') and
+        (i_size = 'medium' or i_size = 'extra large')
+        ) or
+        (i_category = 'Women' and
+        (i_color = 'brown' or i_color = 'honeydew') and
+        (i_units = 'Bunch' or i_units = 'Ton') and
+        (i_size = 'N/A' or i_size = 'small')
+        ) or
+        (i_category = 'Men' and
+        (i_color = 'floral' or i_color = 'deep') and
+        (i_units = 'N/A' or i_units = 'Dozen') and
+        (i_size = 'petite' or i_size = 'petite')
+        ) or
+        (i_category = 'Men' and
+        (i_color = 'light' or i_color = 'cornflower') and
+        (i_units = 'Box' or i_units = 'Pound') and
+        (i_size = 'medium' or i_size = 'extra large')
+        ))) or
+       (i_manufact = i1.i_manufact and
+        ((i_category = 'Women' and
+        (i_color = 'midnight' or i_color = 'snow') and
+        (i_units = 'Pallet' or i_units = 'Gross') and
+        (i_size = 'medium' or i_size = 'extra large')
+        ) or
+        (i_category = 'Women' and
+        (i_color = 'cyan' or i_color = 'papaya') and
+        (i_units = 'Cup' or i_units = 'Dram') and
+        (i_size = 'N/A' or i_size = 'small')
+        ) or
+        (i_category = 'Men' and
+        (i_color = 'orange' or i_color = 'frosted') and
+        (i_units = 'Each' or i_units = 'Tbl') and
+        (i_size = 'petite' or i_size = 'petite')
+        ) or
+        (i_category = 'Men' and
+        (i_color = 'forest' or i_color = 'ghost') and
+        (i_units = 'Lb' or i_units = 'Bundle') and
+        (i_size = 'medium' or i_size = 'extra large')
+        )))) > 0
+ order by i_product_name
+ limit 100""",
+    "q76": """select channel, col_name, d_year, d_qoy, i_category, count(*) sales_cnt,
+       sum(ext_sales_price) sales_amt
+from (select 'store' as channel, 'ss_store_sk' col_name, d_year, d_qoy,
+             i_category, ss_ext_sales_price ext_sales_price
+      from store_sales, item, date_dim
+      where ss_store_sk is null
+        and ss_sold_date_sk = d_date_sk
+        and ss_item_sk = i_item_sk
+      union all
+      select 'web' as channel, 'ws_ship_customer_sk' col_name, d_year,
+             d_qoy, i_category, ws_ext_sales_price ext_sales_price
+      from web_sales, item, date_dim
+      where ws_ship_customer_sk is null
+        and ws_sold_date_sk = d_date_sk
+        and ws_item_sk = i_item_sk
+      union all
+      select 'catalog' as channel, 'cs_ship_addr_sk' col_name, d_year,
+             d_qoy, i_category, cs_ext_sales_price ext_sales_price
+      from catalog_sales, item, date_dim
+      where cs_ship_addr_sk is null
+        and cs_sold_date_sk = d_date_sk
+        and cs_item_sk = i_item_sk) foo
+group by channel, col_name, d_year, d_qoy, i_category
+order by channel, col_name, d_year, d_qoy, i_category
+limit 100""",
 }

@@ -3,9 +3,10 @@
 Row counts must equal the JAX package's C++ generator (``ndsgen -sizes``)
 at the spec's step scales; the distributions follow its ``gen_sale``,
 ``gen_return``, ``gen_item``, ``gen_date_dim``, ``gen_store``,
-``gen_reason``, ``gen_household_demographics`` and ``gen_time_dim``
-models.  Counts and keys are exact; shares are checked within four
-standard errors of the model's value."""
+``gen_reason``, ``gen_household_demographics``, ``gen_time_dim``,
+``gen_catalog_sales`` and ``gen_web_sales`` models.  Counts and keys
+are exact; shares are checked within four standard errors of the
+model's value."""
 
 import subprocess
 
@@ -353,3 +354,186 @@ def test_report_column_models(cat):
     assert int(per_unit.min()) >= 100 and int(per_unit.max()) <= 10000
     # sales <= list <= 2 x wholesale
     assert bool((ss.column("ss_sales_price").data <= 2 * per_unit).all())
+
+
+# every column generated before the set-operation reports' columns were
+# added, and the digest of their values at SF 0.01, seed 5, on the CPU,
+# taken before that change: the earlier paths read the same data
+_EARLIER_COLUMNS = {
+    "date_dim": ("d_date_sk", "d_date", "d_month_seq", "d_year", "d_moy",
+                 "d_qoy", "d_day_name"),
+    "item": ("i_item_sk", "i_item_id", "i_item_desc", "i_current_price",
+             "i_brand_id", "i_brand", "i_class", "i_category_id",
+             "i_category", "i_manufact_id", "i_manager_id",
+             "i_product_name"),
+    "store_sales": ("ss_sold_date_sk", "ss_sold_time_sk", "ss_item_sk",
+                    "ss_customer_sk", "ss_hdemo_sk", "ss_store_sk",
+                    "ss_ticket_number", "ss_quantity", "ss_sales_price",
+                    "ss_ext_discount_amt", "ss_ext_sales_price",
+                    "ss_net_paid", "ss_net_profit"),
+    "store_returns": ("sr_item_sk", "sr_reason_sk", "sr_ticket_number",
+                      "sr_return_quantity"),
+    "store": ("s_store_sk", "s_store_id", "s_store_name", "s_company_name",
+              "s_state", "s_gmt_offset"),
+    "reason": ("r_reason_sk", "r_reason_id", "r_reason_desc"),
+    "household_demographics": ("hd_demo_sk", "hd_income_band_sk",
+                               "hd_buy_potential", "hd_dep_count",
+                               "hd_vehicle_count"),
+    "time_dim": ("t_time_sk", "t_time", "t_hour", "t_minute", "t_second"),
+}
+_EARLIER_DIGEST = \
+    "2a00563c39f6f162275b92640bfe7200279f4066652558a45ccaa6a523bf48b4"
+
+
+def test_earlier_columns_keep_their_values():
+    import hashlib
+    cat = datagen.generate(0.01, seed=5, device="cpu")
+    h = hashlib.sha256()
+    for table, cols in _EARLIER_COLUMNS.items():
+        for name in cols:
+            c = cat.get(table).column(name)
+            h.update(f"{table}.{name}".encode())
+            h.update(c.data.numpy().tobytes())
+            if c.valid is not None:
+                h.update(c.valid.numpy().tobytes())
+            if c.dictionary is not None:
+                h.update("\0".join(map(str, c.dictionary)).encode())
+    assert h.hexdigest() == _EARLIER_DIGEST
+
+
+@pytest.mark.parametrize("sf", [0.2, 1, 10, 100])
+@pytest.mark.parametrize("table", ["catalog_sales", "web_sales",
+                                   "customer_address"])
+def test_channel_row_counts_match_ndsgen(sf, table, ndsgen_sizes):
+    assert datagen.sizes(sf)[table] == ndsgen_sizes(sf)[table]
+
+
+# the columns the set-operation and distinct reports (q2, q28, q41, q76)
+# read, with their schema kinds and whether the model has NULLs
+_SETOP_COLUMNS = {
+    ("date_dim", "d_week_seq"): ("int64", False),
+    ("item", "i_manufact"): ("string", False),
+    ("item", "i_color"): ("string", False),
+    ("item", "i_units"): ("string", False),
+    ("item", "i_size"): ("string", False),
+    ("store_sales", "ss_wholesale_cost"): ("decimal", False),
+    ("store_sales", "ss_list_price"): ("decimal", False),
+    ("store_sales", "ss_coupon_amt"): ("decimal", False),
+    ("catalog_sales", "cs_sold_date_sk"): ("int32", True),
+    ("catalog_sales", "cs_ship_addr_sk"): ("int32", False),
+    ("catalog_sales", "cs_item_sk"): ("int32", False),
+    ("catalog_sales", "cs_ext_sales_price"): ("decimal", False),
+    ("web_sales", "ws_sold_date_sk"): ("int32", True),
+    ("web_sales", "ws_item_sk"): ("int32", False),
+    ("web_sales", "ws_ship_customer_sk"): ("int32", True),
+    ("web_sales", "ws_ext_sales_price"): ("decimal", False),
+}
+
+
+@pytest.mark.parametrize("table,column", list(_SETOP_COLUMNS))
+def test_setop_columns_typed_and_reproducible(cat, cat_again, table,
+                                              column):
+    """Each column has its schema type, NULLs only where its model has
+    them, and the same values and dictionary from the same seed."""
+    kind, nulls = _SETOP_COLUMNS[(table, column)]
+    c = cat.get(table).column(column)
+    assert c.ctype.kind == kind
+    assert c.ctype == datagen._ctype(table, column)
+    assert (c.valid is not None) == nulls
+    again = cat_again.get(table).column(column)
+    assert torch.equal(c.data, again.data)
+    if nulls:
+        assert torch.equal(c.valid, again.valid)
+    if c.dictionary is not None:
+        assert list(c.dictionary) == list(again.dictionary)
+        assert list(c.dictionary) == sorted(c.dictionary)
+        assert int(c.data.min()) >= 0
+        assert int(c.data.max()) < len(c.dictionary)
+
+
+def test_setop_item_and_calendar_models(cat):
+    """i_manufact names the same row's i_manufact_id; color, units and
+    size come from their lists (colors weighted); d_week_seq counts weeks
+    from 1900-01-02, as a direct calendar computation gives it."""
+    item = cat.get("item")
+
+    def strings(col):
+        c = item.column(col)
+        return c.dictionary[c.data.numpy()]
+
+    ids = item.column("i_manufact_id").data.numpy()
+    assert list(strings("i_manufact")) == [f"manu#{m}" for m in ids]
+    color = strings("i_color")
+    assert set(color) <= set(datagen._COLORS)
+    # weight 12 against weight 1
+    assert (color == "red").sum() > 3 * (color == "linen").sum()
+    assert set(strings("i_units")) == set(datagen._UNITS)
+    assert set(strings("i_size")) == set(datagen._SIZES)
+    n = item.num_rows
+    for col, pool in (("i_units", datagen._UNITS),
+                      ("i_size", datagen._SIZES)):
+        share = float((strings(col) == pool[0]).mean())
+        assert _share_ok(share, 1 / len(pool), n), col
+    dd = cat.get("date_dim")
+    days = dd.column("d_date_sk").data.numpy().astype(np.int64) - \
+        _JD_EPOCH_1970
+    first = (np.datetime64("1900-01-02") -
+             np.datetime64("1970-01-01")).astype(np.int64)
+    np.testing.assert_array_equal(dd.column("d_week_seq").data.numpy(),
+                                  (days - first) // 7 + 1)
+
+
+def test_setop_store_sales_models(cat):
+    """The wholesale cost, list price and coupon are the ones net paid and
+    net profit were computed from."""
+    ss = cat.get("store_sales")
+    col = lambda c: ss.column(c).data  # noqa: E731
+    wholesale, lst, coupon = (col("ss_wholesale_cost"), col("ss_list_price"),
+                              col("ss_coupon_amt"))
+    q, sales, ext = (col("ss_quantity"), col("ss_sales_price"),
+                     col("ss_ext_sales_price"))
+    assert int(wholesale.min()) >= 100 and int(wholesale.max()) <= 10000
+    assert bool((lst >= wholesale).all())
+    assert bool((lst <= 2 * wholesale).all())
+    # 20..100% of list, rounded down to the cent
+    assert bool((sales <= lst).all()) and bool((5 * sales > lst - 5).all())
+    assert torch.equal(col("ss_net_paid"), ext - coupon)
+    assert torch.equal(col("ss_net_profit"), ext - coupon - q * wholesale)
+    assert torch.equal(col("ss_ext_discount_amt"), q * lst - ext)
+    share = float((coupon > 0).double().mean())
+    assert 0.13 < share <= 0.15 + 4 * np.sqrt(0.15 * 0.85 / len(q))
+
+
+@pytest.mark.parametrize("table", ["catalog_sales", "web_sales"])
+def test_channel_sales_models(cat, table):
+    """gen_sale's dates (2% NULL, inside the sales window), Zipf items and
+    cent arithmetic; catalog ship-to addresses uniform and never NULL,
+    web ship-to customers NULL with the sale's customer (3%)."""
+    n = datagen.sizes(0.2)
+    t = cat.get(table)
+    p = table[0] + "s_"
+    rows = t.num_rows
+    assert rows == n[table]
+    d = t.column(p + "sold_date_sk")
+    assert _share_ok(1 - float(d.valid.double().mean()), 0.02, rows)
+    dv = d.data[d.valid]
+    assert int(dv.min()) >= 2450816 and int(dv.max()) <= 2452642
+    isk = t.column(p + "item_sk").data.long()
+    assert int(isk.min()) >= 1 and int(isk.max()) <= n["item"]
+    counts = torch.bincount(isk).sort(descending=True).values
+    assert float(counts[: n["item"] // 100].sum()) / rows > 0.3
+    ext = t.column(p + "ext_sales_price").data
+    assert int(ext.min()) >= 20 and int(ext.max()) <= 100 * 20000
+    if table == "catalog_sales":
+        addr = t.column("cs_ship_addr_sk")
+        assert addr.valid is None
+        assert int(addr.data.min()) >= 1
+        assert int(addr.data.max()) <= n["customer_address"]
+        low = float((addr.data <= n["customer_address"] // 2).double()
+                    .mean())
+        assert _share_ok(low, 0.5, rows)
+    else:
+        cu = t.column("ws_ship_customer_sk")
+        assert _share_ok(1 - float(cu.valid.double().mean()), 0.03, rows)
+        assert int(cu.data.min()) >= 1
+        assert int(cu.data.max()) <= n["customer"]

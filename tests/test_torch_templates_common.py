@@ -6,8 +6,8 @@ Each of the three files takes a third of ``streamgen.list_templates()``
 each template counts as one test.  A case passes when the port's result
 agrees with ``Session(backend="tpu")`` under
 ``tests/test_jaxexec.py::assert_tables_match`` (in order where the plan
-ends in a sort), or when the port raises ``Unsupported`` for a family that
-is still to port.  Any other exception, and any disagreement, fails it.
+ends in a sort).  Any exception, ``Unsupported`` included, and any
+disagreement fails it.
 The warehouse is the SF 0.002 one tests/test_torch_engine.py builds.
 This module holds no tests itself."""
 
@@ -20,28 +20,18 @@ from ndstpu.engine.session import Session as JaxSession
 from ndstpu.io import loader
 from ndstpu.queries import streamgen
 from ndstpu_torch import carry
-from ndstpu_torch.engine import plan as lp, torchexec
+from ndstpu_torch.engine import plan as lp
 from ndstpu_torch.engine.session import Session
 from test_jaxexec import assert_tables_match
 
 TEMPLATES = [t[:-len(".tpl")] for t in streamgen.list_templates()]
 PARTS = 3
 
-# plan nodes of the families still to port: set ops and distinct (and
-# distinct aggregates, NDS207 with "distinct" in the message)
-_TO_PORT_NODES = {"SetOp", "Distinct"}
-
 
 def part(i: int):
     """The i-th third (1-based) of the templates."""
     per = -(-len(TEMPLATES) // PARTS)
     return TEMPLATES[(i - 1) * per: i * per]
-
-
-def still_to_port(u: torchexec.Unsupported) -> bool:
-    if u.node in _TO_PORT_NODES:
-        return True
-    return u.code == "NDS207" and "distinct" in str(u)
 
 
 def render(tpl: str):
@@ -79,27 +69,10 @@ def sessions(tmp_path_factory):
             Session(carry.catalog_from_numpy(plain), device="cpu"))
 
 
-def run_port(torch_sess, tpl: str):
-    """The port's results for every part of ``tpl``, or None when it
-    refuses the template for a family still to port (any other
-    Unsupported propagates)."""
-    out = []
-    for sql in render(tpl):
-        try:
-            out.append((sql, torch_sess.sql(sql)))
-        except torchexec.Unsupported as u:
-            if still_to_port(u):
-                return None
-            raise
-    return out
-
-
 def check_template(sessions, tpl: str):
     jax_sess, torch_sess = sessions
-    got = run_port(torch_sess, tpl)
-    if got is None:
-        return
-    for sql, table in got:
+    for sql in render(tpl):
+        table = torch_sess.sql(sql)
         want = jax_sess.sql(sql)
         assert want.column_names == table.column_names
         assert_tables_match(want, table,
