@@ -11,8 +11,8 @@ non-zero:
    power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the port from ``ndstpu_torch/ops/csrc``,
    one ``nvcc`` per source, all started together;
-3. data: the store-channel warehouse generated on the card at
-   ``--scale``;
+3. data: the store-channel columns (``datagen.COLUMNS``) generated on
+   the card at ``--scale`` (SF 100);
 4. kernels: each kernel against its plain PyTorch version on the card:
    ``segsum_decimal`` bit-exact (tolerance 0: exact int64) at the main
    path's own inputs (captured from a q42 run), at 8,000,000 Zipf-skewed
@@ -59,15 +59,37 @@ non-zero:
    query's first is checked and timed as a kernel shape as in phase 4
    (q28's banded average is the path's one call).
 
-Phases 5, 6, 7, 8 and 9 are the main paths: the kernel launch counts are
-set to 0 just before each and read just after, and every kernel each path
-runs must have launched.  Then one JSON line of kernels, and last the
+10. corpus check: the store channel freed, the whole warehouse (25
+    tables, 429 columns) generated on the card at ``CHECK_SCALE`` and
+    copied to the host; every part of the power corpus (103
+    parts, rngseed 07291122510, stream 0) through ``Session(device=
+    "cuda")`` and ``Session(device="cpu")`` over the same tables, held
+    together (ints, decimals, dates and strings exact, floats within
+    1e-5 relative, in order where the plan ends in a sort), with every
+    ``segsum_decimal`` call of the card runs held bit-exact against the
+    plain version at its own inputs; the largest of those calls is
+    checked and timed as a kernel shape as in phase 4.  One line per
+    part (rows, host syncs, memo hits, ``segsum_decimal`` launches) and
+    a summary of the non-empty and empty parts;
+11. corpus: the check's warehouse freed, the whole warehouse generated
+    at ``CORPUS_SCALE``.  First one run of every part with each
+    ``segsum_decimal`` call held bit-exact against the plain version at
+    its own inputs, the call with the most rows checked and timed as a
+    kernel shape as in phase 4; then every part run cold and three times
+    warm: one line per part (cold ms, warm median ms, rows, peak device
+    bytes, host syncs, memo hits, ``segsum_decimal`` launches of the cold
+    run).
+
+Phases 5, 6, 7, 8, 9 and 11 are the main paths: the kernel launch counts
+are set to 0 just before each and read just after, and every kernel each
+path runs must have launched.  Then one JSON line of kernels, and last the
 result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -85,6 +107,13 @@ from ndstpu_torch.queries import (Q9_BUCKETS, QUERIES, SETOP_QUERIES,
 # H100 SXM HBM3 rate (NVIDIA data sheet): the bound of a byte-bound kernel
 HBM_BYTES_PER_S = 3.35e12
 LIMIT = 100
+# the corpus phases' scales.  The check's CPU run of all 103 parts took
+# 50 s at SF 1 and 321 s at SF 5 on the 8-core host of an H100, and the
+# whole script 1,001 s with SF 5: SF 3 keeps it well inside 1,200 s.  At
+# SF 30 on an 80 GB H100, q72 runs out of memory and q17 peaks at 80.8 GB,
+# so the corpus runs at SF 20
+CHECK_SCALE = 3.0
+CORPUS_SCALE = 20.0
 SEGMENTS_Q42 = 24443
 BENCH_ROWS, BENCH_SEGMENTS = 4_000_000, 1024
 
@@ -1304,7 +1333,10 @@ def engine_rows(table, nulls: bool = False) -> list:
         valid = np.ones(len(c.data), bool) if c.valid is None else c.valid
         if not nulls and not valid.all():
             raise AssertionError("unexpected NULL in a result column")
-        data = c.dictionary[c.data] if c.dictionary is not None else c.data
+        data = c.data
+        if c.dictionary is not None:     # NULL codes may index nothing
+            data = np.full(len(c.data), None, dtype=object)
+            data[valid] = c.dictionary[c.data[valid]]
         cols.append([v if ok else None
                      for v, ok in zip(data.tolist(), valid.tolist())])
     return list(zip(*cols))
@@ -1342,12 +1374,13 @@ def compare(want_all: list, got: list, key, limit=LIMIT) -> None:
         i = j
 
 
-def segsum_calls(segsum, sess, sql, keep=None) -> tuple:
+def segsum_calls(segsum, sess, sql, keep=None, largest=False) -> tuple:
     """One run of ``sql`` with every ``segment_sum_decimal`` call it makes
     held bit-exact against the plain version at the call's own inputs:
     (copies of the inputs of the first ``keep`` calls, all of them by
-    default, as [(vals, gid, mask, segments), ...]; the number of calls;
-    their largest error)."""
+    default, or with ``largest`` of the one call with the most rows, as
+    [(vals, gid, mask, segments), ...]; the number of calls; their
+    largest error; the run's result)."""
     captured, errs = [], []
     wrapper = segsum.segment_sum_decimal
 
@@ -1355,16 +1388,19 @@ def segsum_calls(segsum, sess, sql, keep=None) -> tuple:
         segsum.segment_sum_decimal = wrapper
         errs.append(check_segsum(segsum, vals, gid, mask, s))
         segsum.segment_sum_decimal = capture
-        if keep is None or len(captured) < keep:
+        if largest:
+            if not captured or vals.numel() > captured[0][0].numel():
+                captured[:] = [(vals.clone(), gid.clone(), mask.clone(), s)]
+        elif keep is None or len(captured) < keep:
             captured.append((vals.clone(), gid.clone(), mask.clone(), s))
         return wrapper(vals, gid, mask, s)
 
     segsum.segment_sum_decimal = capture
     try:
-        sess.sql(sql)
+        out = sess.sql(sql)
     finally:
         segsum.segment_sum_decimal = wrapper
-    return captured, len(errs), max(errs, default=0)
+    return captured, len(errs), max(errs, default=0), out
 
 
 def descale_check(seed: int, n: int = 1 << 22) -> None:
@@ -1386,6 +1422,153 @@ def descale_check(seed: int, n: int = 1 << 22) -> None:
     if wrong:
         raise AssertionError(f"decimal descale: {wrong} of {n} quotients "
                              f"differ from the IEEE quotient")
+
+
+def first_difference(want: list, got: list, ordered: bool):
+    """None when ``got`` equals ``want`` under ``rows_match`` (in order
+    where ``ordered``, else as multisets); else the first differing row
+    of each, with its index."""
+    if not ordered:
+        want, got = (sorted(r, key=_null_first) for r in (want, got))
+    if rows_match(want, got):
+        return None
+    if len(want) != len(got):
+        return {"rows": len(got), "reference_rows": len(want)}
+    i = next(j for j, (a, b) in enumerate(zip(want, got))
+             if not rows_match([a], [b]))
+    return {"row": i, "card": repr(got[i]), "cpu": repr(want[i])}
+
+
+def corpus_check(segsum, scale: float, seed: int, card: str) -> dict:
+    """Every part of the power corpus on the card and on the CPU over the
+    same generated warehouse (the card's tables copied to the host), held
+    together: ints, decimals, dates and strings exact, floats within 1e-5
+    relative, in order where the plan ends in a sort.  Every
+    ``segment_sum_decimal`` call of the card runs is held bit-exact
+    against the plain version at its own inputs.  Returns the largest
+    error, the number of calls and the inputs of the call with the most
+    rows."""
+    from ndstpu_torch import datagen
+    from ndstpu_torch.engine.plan import fixes_order
+    from ndstpu_torch.engine.session import Session
+    from ndstpu_torch.queries import corpus
+    t0 = time.time()
+    cat = datagen.generate(scale, seed, "cuda")
+    torch.cuda.synchronize()
+    host = datagen.move(cat, "cpu")
+    say("corpus check data", scale=scale, seconds=time.time() - t0,
+        rows={t: cat.get(t).num_rows for t in cat.tables},
+        device_bytes=torch.cuda.memory_allocated())
+    on_card, on_cpu = Session(cat, device="cuda"), Session(host, device="cpu")
+    empty, wrong = [], []
+    out = {"max_abs_err": 0, "calls": 0, "largest": None}
+    cpu_s = 0.0
+    parts = corpus()
+    for name, sql in parts:
+        captured, n_calls, err, table = segsum_calls(segsum, on_card, sql,
+                                                     largest=True)
+        keep_largest(out, captured, n_calls, err)
+        got = engine_rows(table, nulls=True)
+        syncs, memo = on_card.executor.n_syncs, on_card.executor.n_memo_hits
+        t1 = time.time()
+        want = engine_rows(on_cpu.sql(sql), nulls=True)
+        cpu_s += time.time() - t1
+        diff = first_difference(want, got,
+                                fixes_order(on_card.plan(sql)[0]))
+        if not got:
+            empty.append(name)
+        if diff is not None:
+            wrong.append(name)
+        # the engine's calls of the wrapper, each one launch on the card
+        # (the check's own launches not counted)
+        say("corpus check", part=name, rows=len(got), host_syncs=syncs,
+            memo_hits=memo, kernel_launches=n_calls, equal=diff is None,
+            **({} if diff is None else {"difference": diff}))
+    say("corpus check summary", scale=scale, parts=len(parts),
+        non_empty=len(parts) - len(empty), empty=empty,
+        differ=wrong, cpu_seconds=cpu_s, seconds=time.time() - t0,
+        segsum_calls=out["calls"], max_abs_err=out["max_abs_err"],
+        card=card)
+    if wrong:
+        raise AssertionError(f"the card differs from the CPU on {wrong}")
+    return out
+
+
+def keep_largest(out: dict, captured: list, n_calls: int, err: int) -> None:
+    """Fold one run's ``segsum_calls(..., largest=True)`` into ``out``:
+    the largest error, the number of calls and the call with the most
+    rows."""
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+    out["calls"] += n_calls
+    for c in captured:
+        if out["largest"] is None or c[0].numel() > out["largest"][0].numel():
+            out["largest"] = c
+
+
+def corpus_run(segsum, scale: float, seed: int, card: str) -> tuple:
+    """Every part of the power corpus on the card over the whole
+    warehouse at ``scale``: cold and warm ms (median of 3), rows, peak
+    device bytes, host syncs, memo hits and ``segsum_decimal`` launches of
+    the cold run.  Before the counts are zeroed, one run of each part
+    holds every ``segsum_decimal`` call bit-exact against the plain
+    version at its own inputs, and the call with the most rows is checked
+    and timed as a kernel shape as in phase 4.  Returns the phase's
+    launches and that shape's record."""
+    from ndstpu_torch import datagen
+    from ndstpu_torch.engine.session import Session
+    from ndstpu_torch.queries import corpus
+    t0 = time.time()
+    cat = datagen.generate(scale, seed, "cuda")
+    torch.cuda.synchronize()
+    say("corpus data", scale=scale, seconds=time.time() - t0,
+        rows={t: cat.get(t).num_rows for t in cat.tables},
+        device_bytes=torch.cuda.memory_allocated(), card=card)
+    parts = corpus()
+    t1 = time.time()
+    # on a session of its own, so that the timed runs below start cold
+    # (the executor keeps each table's device copy for its session)
+    sess = Session(cat, device="cuda")
+    calls = {"max_abs_err": 0, "calls": 0, "largest": None}
+    for _name, sql in parts:
+        keep_largest(calls, *segsum_calls(segsum, sess, sql,
+                                          largest=True)[:3])
+    del sess
+    say("corpus segment sums", scale=scale, calls=calls["calls"],
+        max_abs_err=calls["max_abs_err"], seconds=time.time() - t1)
+    if calls["largest"] is None:
+        raise AssertionError("the corpus made no segment-sum call")
+    shape = decimal_shape(
+        segsum, f"corpus main path at SF {scale:g}, largest of "
+        f"{calls['calls']} sums", *calls["largest"])
+    shape["max_abs_err"] = max(shape["max_abs_err"], calls["max_abs_err"])
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    sess = Session(cat, device="cuda")
+    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    for name, sql in parts:
+        torch.cuda.reset_peak_memory_stats()
+        before = segsum.LAUNCHES
+        t1 = time.perf_counter()
+        table = sess.sql(sql)
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t1) * 1e3
+        launched = segsum.LAUNCHES - before
+        syncs, memo = sess.executor.n_syncs, sess.executor.n_memo_hits
+        warm = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            sess.sql(sql)
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t1) * 1e3)
+        say("corpus", part=name, rows=table.num_rows, cold_ms=cold,
+            warm_median_ms=statistics.median(warm),
+            peak_bytes=torch.cuda.max_memory_allocated(), host_syncs=syncs,
+            memo_hits=memo, kernel_launches=launched, card=card)
+    launches = segsum.LAUNCHES
+    say("corpus summary", scale=scale, parts=len(parts),
+        seconds=time.time() - t0, kernel_launches=launches, card=card)
+    return launches, shape
 
 
 # ---------------------------------------------------------------------------
@@ -1416,7 +1599,8 @@ def main() -> int:
                       for p in sorted(build.CSRC.glob("*.cu"))})
 
     t0 = time.time()
-    cat = datagen.generate(args.scale, args.seed, "cuda")
+    cat = datagen.generate(args.scale, args.seed, "cuda",
+                           columns=datagen.COLUMNS)
     torch.cuda.synchronize()
     say("data", scale=args.scale, seconds=time.time() - t0,
         rows={t: cat.get(t).num_rows for t in cat.tables},
@@ -1570,13 +1754,12 @@ def main() -> int:
     # each query bit-exact, the first of each query timed as a shape
     routed_calls = {}
     for q, sql in SETOP_QUERIES.items():
-        captured, n_calls, err = segsum_calls(segsum, sess, sql, keep=1)
+        captured, n_calls, err, _ = segsum_calls(segsum, sess, sql, keep=1)
         routed_calls[q] = n_calls
         k["max_abs_err"] = max(k["max_abs_err"], err)
-        for vals, gid, mask, s in captured:
-            k["shapes"].append(decimal_shape(
-                segsum, f"{q} main path, sum 1 of {n_calls}", vals, gid,
-                mask, s))
+        k["shapes"].extend(decimal_shape(
+            segsum, f"{q} main path, sum 1 of {n_calls}", *c)
+            for c in captured)
         del captured
     say("setop segment sums", calls=routed_calls)
     segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
@@ -1602,6 +1785,33 @@ def main() -> int:
         raise AssertionError("the path routes sums to segsum_decimal but "
                              "launched it no time")
 
+    # the whole warehouse: free the store channel's first
+    del cat, sess, gate, spy_gate, run_query, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("freed", device_bytes=torch.cuda.memory_allocated())
+
+    # the corpus, checked against the port's CPU run at the check scale;
+    # the check's call with the most rows checked and timed as a shape
+    check = corpus_check(segsum, CHECK_SCALE, args.seed, card)
+    k["max_abs_err"] = max(k["max_abs_err"], check["max_abs_err"])
+    if check["largest"] is not None:
+        k["shapes"].append(decimal_shape(
+            segsum, f"corpus check at SF {CHECK_SCALE:g}, largest of "
+            f"{check['calls']} sums", *check["largest"]))
+    del check
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # main path 6: the whole corpus at the run scale, its kernel checked
+    # and timed at the path's own inputs first
+    corpus_launches, shape = corpus_run(segsum, CORPUS_SCALE, args.seed,
+                                        card)
+    k["shapes"].append(shape)
+    k["max_abs_err"] = max(k["max_abs_err"], shape["max_abs_err"])
+    if corpus_launches == 0:
+        raise AssertionError("the corpus launched no segsum_decimal")
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "segsum_decimal", "route": "cuda",
@@ -1609,12 +1819,13 @@ def main() -> int:
         "replaces": "ndstpu/ops/segsum.py:141",
         "tpu_kernel": "ndstpu/ops/segsum.py::_limb_kernel",
         "launches": family_launches + bench_launches[0] + store_launches +
-        window_launches + setop_launches,
+        window_launches + setop_launches + corpus_launches,
         "launches_by_path": {"q3 family": family_launches,
                              "bench": bench_launches[0],
                              "store slice": store_launches,
                              "store window reports": window_launches,
-                             "set operations and distinct": setop_launches},
+                             "set operations and distinct": setop_launches,
+                             "corpus": corpus_launches},
         "max_abs_err": k["max_abs_err"],
         "ms": k["call_ms"], "kernel_ms": k["call_ms"],
         "device_ms": k["device_ms"],

@@ -317,34 +317,43 @@ def prune(p: lp.Plan, needed: Optional[Set[str]] = None) -> lp.Plan:
 # -- join reordering ---------------------------------------------------------
 
 
-def _estimate_rows(p: lp.Plan, catalog) -> float:
+def _estimate_rows(p: lp.Plan, catalog, filtered: bool = True) -> float:
     """Crude cardinality estimate for join ordering (no stats yet):
-    base table rows, decimated by pushed predicates."""
+    base table rows, decimated by pushed predicates (not where
+    ``filtered`` is false: the rows before any filter).  An inner join
+    keeps its larger side's rows, thinned by the smaller side's filters
+    (a key join under independence), so a subquery that joins a fact to
+    filtered dimensions is estimated as small as it is."""
+    def est(q, f=filtered):
+        return _estimate_rows(q, catalog, f)
     if isinstance(p, lp.Scan):
         n = float(catalog.get(p.table).num_rows) if catalog is not None \
             and p.table in catalog else 1e6
-        return max(n / 20.0, 1.0) if p.predicate is not None else n
+        return max(n / 20.0, 1.0) if p.predicate is not None and filtered \
+            else n
     if isinstance(p, lp.Project):
-        return _estimate_rows(p.child, catalog)
+        return est(p.child)
     if isinstance(p, lp.Filter):
-        return max(_estimate_rows(p.child, catalog) / 20.0, 1.0)
+        return max(est(p.child) / 20.0, 1.0) if filtered else est(p.child)
     if isinstance(p, (lp.Sort, lp.Distinct, lp.Window)):
-        return _estimate_rows(p.child, catalog)
+        return est(p.child)
     if isinstance(p, lp.Limit):
-        return min(float(p.n), _estimate_rows(p.child, catalog))
+        return min(float(p.n), est(p.child))
     if isinstance(p, lp.Aggregate):
-        return max(_estimate_rows(p.child, catalog) / 100.0, 1.0)
+        return max(est(p.child) / 100.0, 1.0)
     if isinstance(p, lp.Join):
-        l = _estimate_rows(p.left, catalog)
-        r = _estimate_rows(p.right, catalog)
+        l, r = est(p.left), est(p.right)
         if p.kind in ("semi", "anti", "nullaware_anti", "mark"):
             return l
-        return max(l, r)
+        if p.kind != "inner" or not p.keys or not filtered:
+            return max(l, r)
+        bl, br = est(p.left, False), est(p.right, False)
+        big, small, small_base = (l, r, br) if bl >= br else (r, l, bl)
+        return max(big * small / max(small_base, 1.0), 1.0)
     if isinstance(p, lp.InlineTable):
         return float(p.table.num_rows)
     if isinstance(p, lp.SetOp):
-        return _estimate_rows(p.left, catalog) + \
-            _estimate_rows(p.right, catalog)
+        return est(p.left) + est(p.right)
     return 1e6
 
 

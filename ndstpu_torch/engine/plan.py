@@ -198,6 +198,14 @@ def copy_plan(p: Plan) -> Plan:
     raise TypeError(f"copy_plan: {type(p).__name__}")
 
 
+def fixes_order(p: Plan) -> bool:
+    """Does the plan end in a sort (under projections and a limit), so
+    that its rows come in a fixed order?"""
+    while isinstance(p, (Limit, Project, SubqueryAlias)):
+        p = p.child
+    return isinstance(p, Sort)
+
+
 def plan_string(p: Plan, indent: int = 0) -> str:
     pad = "  " * indent
     label = type(p).__name__

@@ -1,13 +1,16 @@
 """Where the time of the port's queries goes, on one CUDA card.
 
-    python -m ndstpu_torch.profile [--scale SF] [--seed N] [--out DIR]
+    python -m ndstpu_torch.profile [--corpus] [--scale SF] [--seed N]
+                                   [--out DIR]
 
-Generates the warehouse on the card (as ``chip_smoke.py`` does), runs each
-of the seventeen queries of :mod:`ndstpu_torch.queries` once to warm up,
-then once under ``torch.profiler`` (CPU and CUDA activities).  Prints one
-JSON line per query: wall ms, summed device ms, the device's idle share of
-the wall time, host syncs, memo hits, and the top operators and kernels by
-device time; writes one Chrome trace per query into ``--out``.
+Generates the warehouse on the card (as ``chip_smoke.py`` does): the
+store-channel columns at SF 100 for the seventeen queries of the earlier
+card paths, or with ``--corpus`` the whole warehouse at SF 20 for every
+part of the power corpus.  Runs each query once to warm up, then once
+under ``torch.profiler`` (CPU and CUDA activities).  Prints one JSON line
+per query: wall ms, summed device ms, the device's idle share of the wall
+time, host syncs, memo hits, and the top operators and kernels by device
+time; writes one Chrome trace per query into ``--out``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from ndstpu_torch import datagen
 from ndstpu_torch.engine.session import Session
 from ndstpu_torch.queries import (QUERIES, SETOP_QUERIES, STORE_QUERIES,
-                                  WINDOW_QUERIES)
+                                  WINDOW_QUERIES, corpus)
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -57,7 +60,10 @@ def breakdown(prof, top: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scale", type=float, default=100.0)
+    ap.add_argument("--corpus", action="store_true",
+                    help="every part of the power corpus, whole warehouse")
+    ap.add_argument("--scale", type=float, default=None,
+                    help="SF (default 100, or 20 with --corpus)")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--out", default=str(_ROOT / "build" / "profile"))
     ap.add_argument("--top", type=int, default=10)
@@ -71,10 +77,18 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    cat = datagen.generate(args.scale, args.seed, "cuda")
+    if args.corpus:
+        scale = 20.0 if args.scale is None else args.scale
+        cat = datagen.generate(scale, args.seed, "cuda")
+        queries = corpus()
+    else:
+        scale = 100.0 if args.scale is None else args.scale
+        cat = datagen.generate(scale, args.seed, "cuda",
+                               columns=datagen.COLUMNS)
+        queries = list({**QUERIES, **STORE_QUERIES, **WINDOW_QUERIES,
+                        **SETOP_QUERIES}.items())
     sess = Session(cat, device="cuda")
-    for q, sql in {**QUERIES, **STORE_QUERIES, **WINDOW_QUERIES,
-                   **SETOP_QUERIES}.items():
+    for q, sql in queries:
         sess.sql(sql)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -86,7 +100,7 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(str(out / f"{q}.json"))
         b = breakdown(prof, args.top)
         print(json.dumps({
-            "query": q, "scale": args.scale, "card": card,
+            "query": q, "scale": scale, "card": card,
             "wall_ms": wall_ms, "device_ms": b["device_ms"],
             "device_idle_share": max(0.0, 1 - b["device_ms"] / wall_ms),
             "host_syncs": sess.executor.n_syncs,

@@ -20,7 +20,7 @@ from ndstpu.engine.session import Session as JaxSession
 from ndstpu.io import loader
 from ndstpu.queries import streamgen
 from ndstpu_torch import carry
-from ndstpu_torch.engine import plan as lp
+from ndstpu_torch.engine.plan import fixes_order
 from ndstpu_torch.engine.session import Session
 from test_jaxexec import assert_tables_match
 
@@ -37,13 +37,6 @@ def part(i: int):
 def render(tpl: str):
     return [sql for _n, sql in streamgen.render_template_parts(
         str(streamgen.TEMPLATE_DIR / f"{tpl}.tpl"), "07291122510", 0)]
-
-
-def fixes_order(plan) -> bool:
-    """Does the plan end in a sort (under projections and a limit)?"""
-    while isinstance(plan, (lp.Limit, lp.Project, lp.SubqueryAlias)):
-        plan = plan.child
-    return isinstance(plan, lp.Sort)
 
 
 @pytest.fixture(scope="module")
