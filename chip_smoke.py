@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--scale SF] [--seed N]
+    python3 chip_smoke.py [--scale SF] [--seed N] [--check-scale SF]
+                          [--corpus-scale SF]
 
 Runs from the root of a checkout, needs one CUDA card, and drives only
 ``ndstpu_torch`` (it imports nothing of JAX or of the ``ndstpu`` package).
@@ -12,7 +13,7 @@ non-zero:
 2. build: every CUDA kernel of the port from ``ndstpu_torch/ops/csrc``,
    one ``nvcc`` per source, all started together;
 3. data: the store-channel columns (``datagen.COLUMNS``) generated on
-   the card at ``--scale`` (SF 100);
+   the card at ``--scale`` (``STORE_SCALE``, SF 100);
 4. kernels: each kernel against its plain PyTorch version on the card:
    ``segsum_decimal`` bit-exact (tolerance 0: exact int64) at the main
    path's own inputs (captured from a q42 run), at 8,000,000 Zipf-skewed
@@ -28,10 +29,14 @@ non-zero:
    one-call PyTorch yardstick's time, and every regime the kernel's
    launch planner can choose, forced, checked and timed; then a sweep of
    rows a segment across the regimes;
-5. slice: q3, q42, q52 and q55 through ``Session(device="cuda").sql`` —
-   cold and warm times, rows, peak device memory and host syncs — each
-   held against a plain numpy reference written here, independent of
-   the engine;
+5. slice: q3, q42, q52 and q55 through ``Session(device="cuda").sql``,
+   the compiled path: the cold run discovers the size plan, captures the
+   query as a CUDA graph and replays it once; each warm run is a replay,
+   and one more replay runs under ``torch.profiler``, which counts its
+   ``segsum_decimal`` launches.  Cold and warm times, rows, peak device
+   memory, host syncs (the cold run's, and a replay's), discoveries and
+   captures — each held against a plain numpy reference written here,
+   independent of the engine;
 6. bench: ``ndstpu_torch.ops.bench``'s main at its defaults, the path
    that runs ``segsum_f32``;
 7. store slice: q9, q43, q88 and q93 through the same session, recorded
@@ -62,28 +67,46 @@ non-zero:
 10. corpus check: the store channel freed, the whole warehouse (25
     tables, 429 columns) generated on the card at ``CHECK_SCALE`` and
     copied to the host; every part of the power corpus (103
-    parts, rngseed 07291122510, stream 0) through ``Session(device=
-    "cuda")`` and ``Session(device="cpu")`` over the same tables, held
-    together (ints, decimals, dates and strings exact, floats within
-    1e-5 relative, in order where the plan ends in a sort), with every
-    ``segsum_decimal`` call of the card runs held bit-exact against the
-    plain version at its own inputs; the largest of those calls is
-    checked and timed as a kernel shape as in phase 4.  One line per
-    part (rows, host syncs, memo hits, ``segsum_decimal`` launches) and
-    a summary of the non-empty and empty parts;
+    parts, rngseed 07291122510, stream 0) run twice through ``Session(
+    device="cuda")`` (discovery, capture and first replay; then a
+    replay) and twice through ``Session(device="cpu")`` (discovery; then
+    a replay at the recorded capacities) over the same tables, the four
+    results held together (ints, decimals, dates and strings exact,
+    floats within 1e-5 relative, in order where the plan ends in a
+    sort), with every ``segsum_decimal`` call of the card's discovery
+    held bit-exact against the plain version at its own inputs, and every
+    call captured into a graph at the inputs its replay gave it, against
+    the outputs the replay wrote; the largest of those calls is checked
+    and timed as a kernel shape as in phase 4.  Then the stream-1
+    rendering of every part on the card: where its canonical key is
+    stream 0's it must replay with no discovery, fail a guard and
+    rediscover, or (its binding sharing memo results otherwise) discover
+    an entry of its own, and it must equal an eager run of its own text.
+    One line per part and rendering, and a summary;
 11. corpus: the check's warehouse freed, the whole warehouse generated
-    at ``CORPUS_SCALE``.  First one run of every part with each
-    ``segsum_decimal`` call held bit-exact against the plain version at
-    its own inputs, the call with the most rows checked and timed as a
-    kernel shape as in phase 4; then every part run cold and three times
-    warm: one line per part (cold ms, warm median ms, rows, peak device
-    bytes, host syncs, memo hits, ``segsum_decimal`` launches of the cold
-    run).
+    at ``CORPUS_SCALE``.  First, on a session of its own, the
+    ``segsum_decimal`` calls of the parts that called it in phase 10 held
+    bit-exact as there (discovery's and the replayed graph's), the call
+    with the most rows checked and timed as a kernel shape as in phase 4;
+    then every part run cold (discovery, capture, first replay), three
+    times warm (replays) and once more under ``torch.profiler`` (the
+    ``segsum_decimal`` launches of one replay, counted from the device
+    events): one line per part (cold, capture and replay ms, rows, peak
+    device and graph pool bytes, host syncs of the cold run and of a
+    replay, discoveries, captures, evictions, memo hits,
+    ``segsum_decimal`` launches).  Every replay equals its discovery run
+    (floats within 1e-5 relative), and a part that calls the kernel here
+    but did not in phase 10 fails the script.  Then, with every graph
+    evicted, each part's plan run eagerly three times: one line per part
+    (the median, and the runs that ran out of memory and ran again).
 
 Phases 5, 6, 7, 8, 9 and 11 are the main paths: the kernel launch counts
-are set to 0 just before each and read just after, and every kernel each
-path runs must have launched.  Then one JSON line of kernels, and last the
-result line ``{"ok": true, "device": {...}}``.
+(``segsum.LAUNCHES``, the wrapper's own, and ``segsum.REPLAY_LAUNCHES``,
+those of graph replays, counted by ``torch.profiler`` from the card's
+kernel events in the replays it profiles) are set to 0 just before each
+and read just after, and every kernel each path runs must have launched.
+Then one JSON line of kernels, and last the result line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -109,11 +132,17 @@ HBM_BYTES_PER_S = 3.35e12
 LIMIT = 100
 # the corpus phases' scales.  The check's CPU run of all 103 parts took
 # 50 s at SF 1 and 321 s at SF 5 on the 8-core host of an H100, and the
-# whole script 1,001 s with SF 5: SF 3 keeps it well inside 1,200 s.  At
-# SF 30 on an 80 GB H100, q72 runs out of memory and q17 peaks at 80.8 GB,
-# so the corpus runs at SF 20
-CHECK_SCALE = 3.0
+# whole script 1,001 s with SF 5.  The check now runs each part twice on
+# the CPU (discovery, then a replay at padded capacities) and its
+# stream-1 renderings on the card, and the corpus times three eager runs
+# of each part beside its replays: with the check at SF 1 (121 s of it)
+# the whole script took 997 s on an H100, and the check grows about
+# linearly with the scale, so SF 2 or 3 would leave too little of the
+# 1,200 s.  At SF 30 on an 80 GB H100, q72 runs out of memory and q17
+# peaks at 80.8 GB, so the corpus runs at SF 20
+CHECK_SCALE = 1.0
 CORPUS_SCALE = 20.0
+STORE_SCALE = 100.0
 SEGMENTS_Q42 = 24443
 BENCH_ROWS, BENCH_SEGMENTS = 4_000_000, 1024
 
@@ -141,8 +170,13 @@ REFERENCE = {
 }
 
 
+T0 = time.time()
+
+
 def say(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.time() - T0}), flush=True)
 
 
 def card_line() -> str:
@@ -1374,33 +1408,80 @@ def compare(want_all: list, got: list, key, limit=LIMIT) -> None:
         i = j
 
 
+def decimal_launches(segsum) -> int:
+    """``segsum_decimal``'s launches: the wrapper's, and those of the
+    graph replays the profiler counted."""
+    return segsum.LAUNCHES + segsum.REPLAY_LAUNCHES
+
+
+def profiled_replay(segsum, sess, sql, cp, name) -> int:
+    """One more replay of ``sql``'s graph under ``torch.profiler``; its
+    ``segsum_decimal`` launches, counted from the card's kernel events
+    (``segsum.counting_replays``), must be the calls the capture
+    recorded."""
+    with segsum.counting_replays() as seen:
+        sess.sql(sql)
+    if seen["launches"] != cp.kernel_calls:
+        raise AssertionError(
+            f"{name}: the profiler saw {seen['launches']} segsum_decimal "
+            f"launches in a replay of a graph holding {cp.kernel_calls}")
+    return seen["launches"]
+
+
 def segsum_calls(segsum, sess, sql, keep=None, largest=False) -> tuple:
-    """One run of ``sql`` with every ``segment_sum_decimal`` call it makes
-    held bit-exact against the plain version at the call's own inputs:
-    (copies of the inputs of the first ``keep`` calls, all of them by
-    default, or with ``largest`` of the one call with the most rows, as
-    [(vals, gid, mask, segments), ...]; the number of calls; their
-    largest error; the run's result)."""
-    captured, errs = [], []
+    """The compiled path's first run of ``sql`` (discovery, capture, first
+    replay; with the warm replay off, a second run captures and replays)
+    with every ``segment_sum_decimal`` call held bit-exact against the
+    plain version: discovery's at the inputs it makes them with, each
+    call captured into the graph at the inputs the replay gave it,
+    against the sums and counts the replay wrote (the capture keeps
+    those tensors, so the graph's pool does not reuse them).  Returns
+    (copies of the replayed calls' inputs: the first ``keep``, all of
+    them by default, or with ``largest`` the one with the most rows, as
+    [(vals, gid, mask, segments), ...]; the number of replayed calls;
+    the largest error of every check; the first run's result)."""
+    errs, graph = [], []
     wrapper = segsum.segment_sum_decimal
 
-    def capture(vals, gid, mask, s):
+    def spy(vals, gid, mask, s):
+        if torch.cuda.is_current_stream_capturing():
+            out = wrapper(vals, gid, mask, s)
+            graph.append((vals, gid, mask, s) + tuple(out))
+            return out
         segsum.segment_sum_decimal = wrapper
         errs.append(check_segsum(segsum, vals, gid, mask, s))
-        segsum.segment_sum_decimal = capture
+        segsum.segment_sum_decimal = spy
+        return wrapper(vals, gid, mask, s)
+
+    segsum.segment_sum_decimal = spy
+    try:
+        out = sess.sql(sql)
+        if errs and not graph:
+            sess.sql(sql)
+    finally:
+        segsum.segment_sum_decimal = wrapper
+    captured = []
+    for vals, gid, mask, s, sums, counts in graph:
+        ps, pc = segsum.segment_sum_decimal_plain(vals, gid, mask, s)
+        err = max(int((sums - ps).abs().max()), int((counts - pc).abs().max()))
+        if err != 0:
+            raise AssertionError(f"segsum_decimal in a replayed graph "
+                                 f"disagrees with its plain version at "
+                                 f"n={vals.shape[0]} s={s}: {err}")
+        errs.append(err)
         if largest:
             if not captured or vals.numel() > captured[0][0].numel():
                 captured[:] = [(vals.clone(), gid.clone(), mask.clone(), s)]
         elif keep is None or len(captured) < keep:
             captured.append((vals.clone(), gid.clone(), mask.clone(), s))
-        return wrapper(vals, gid, mask, s)
+    n_graph = len(graph)
+    del graph
+    return captured, n_graph, max(errs, default=0), out
 
-    segsum.segment_sum_decimal = capture
-    try:
-        out = sess.sql(sql)
-    finally:
-        segsum.segment_sum_decimal = wrapper
-    return captured, len(errs), max(errs, default=0), out
+
+def forget(sess, sql) -> None:
+    """Drop ``sql``'s compiled plan, so that its next run starts cold."""
+    sess.executor.forget(sess.canonical_key(sql))
 
 
 def descale_check(seed: int, n: int = 1 << 22) -> None:
@@ -1441,17 +1522,21 @@ def first_difference(want: list, got: list, ordered: bool):
 
 def corpus_check(segsum, scale: float, seed: int, card: str) -> dict:
     """Every part of the power corpus on the card and on the CPU over the
-    same generated warehouse (the card's tables copied to the host), held
-    together: ints, decimals, dates and strings exact, floats within 1e-5
-    relative, in order where the plan ends in a sort.  Every
-    ``segment_sum_decimal`` call of the card runs is held bit-exact
-    against the plain version at its own inputs.  Returns the largest
-    error, the number of calls and the inputs of the call with the most
-    rows."""
+    same generated warehouse (the card's tables copied to the host), each
+    run twice on each (the compiled path's discovery, then its replay),
+    the four results held together: ints, decimals, dates and strings
+    exact, floats within 1e-5 relative, in order where the plan ends in a
+    sort.  Every ``segment_sum_decimal`` call of the card's first runs is
+    held bit-exact against the plain version (``segsum_calls``).  Then
+    each part's stream-1 rendering on the card: sharing stream 0's
+    canonical key, it must replay with no discovery unless a guard
+    failed; it must equal an eager run of its own text.  Returns the
+    largest error, the number of calls and the inputs of the call with
+    the most rows, and the parts whose card runs called the kernel."""
     from ndstpu_torch import datagen
     from ndstpu_torch.engine.plan import fixes_order
     from ndstpu_torch.engine.session import Session
-    from ndstpu_torch.queries import corpus
+    from ndstpu_torch.queries import corpus, streamgen
     t0 = time.time()
     cat = datagen.generate(scale, seed, "cuda")
     torch.cuda.synchronize()
@@ -1460,37 +1545,84 @@ def corpus_check(segsum, scale: float, seed: int, card: str) -> dict:
         rows={t: cat.get(t).num_rows for t in cat.tables},
         device_bytes=torch.cuda.memory_allocated())
     on_card, on_cpu = Session(cat, device="cuda"), Session(host, device="cpu")
+    exe = on_card.executor
     empty, wrong = [], []
-    out = {"max_abs_err": 0, "calls": 0, "largest": None}
+    out = {"max_abs_err": 0, "calls": 0, "largest": None,
+           "kernel_parts": set()}
     cpu_s = 0.0
     parts = corpus()
     for name, sql in parts:
-        captured, n_calls, err, table = segsum_calls(segsum, on_card, sql,
+        captured, n_calls, err, first = segsum_calls(segsum, on_card, sql,
                                                      largest=True)
         keep_largest(out, captured, n_calls, err)
-        got = engine_rows(table, nulls=True)
-        syncs, memo = on_card.executor.n_syncs, on_card.executor.n_memo_hits
+        if n_calls or err:
+            out["kernel_parts"].add(name)
+        cold_syncs = exe.n_syncs
+        second = on_card.sql(sql)
+        replay_syncs, memo = exe.n_syncs, exe.n_memo_hits
         t1 = time.time()
         want = engine_rows(on_cpu.sql(sql), nulls=True)
+        cpu_again = on_cpu.sql(sql)
         cpu_s += time.time() - t1
-        diff = first_difference(want, got,
-                                fixes_order(on_card.plan(sql)[0]))
-        if not got:
+        ordered = fixes_order(on_card.plan(sql)[0])
+        diffs = {run: first_difference(want, engine_rows(t, nulls=True),
+                                       ordered)
+                 for run, t in (("card first", first),
+                                ("card second", second),
+                                ("cpu second", cpu_again))}
+        diffs = {run: d for run, d in diffs.items() if d is not None}
+        if first.num_rows == 0:
             empty.append(name)
-        if diff is not None:
+        if diffs:
             wrong.append(name)
-        # the engine's calls of the wrapper, each one launch on the card
-        # (the check's own launches not counted)
-        say("corpus check", part=name, rows=len(got), host_syncs=syncs,
-            memo_hits=memo, kernel_launches=n_calls, equal=diff is None,
-            **({} if diff is None else {"difference": diff}))
+        say("corpus check", part=name, rows=first.num_rows,
+            host_syncs=cold_syncs, replay_host_syncs=replay_syncs,
+            memo_hits=memo, graph_kernel_calls=n_calls,
+            equal=not diffs, **({"differences": diffs} if diffs else {}))
     say("corpus check summary", scale=scale, parts=len(parts),
         non_empty=len(parts) - len(empty), empty=empty,
         differ=wrong, cpu_seconds=cpu_s, seconds=time.time() - t0,
+        discoveries=exe.n_discoveries, captures=exe.n_captures,
         segsum_calls=out["calls"], max_abs_err=out["max_abs_err"],
         card=card)
     if wrong:
         raise AssertionError(f"the card differs from the CPU on {wrong}")
+    # stream 1: another rendering of every template
+    t1 = time.time()
+    bad, shared_n, replayed_n = [], 0, 0
+    for (name, sql), (_n, sql0) in zip(
+            streamgen.render_power_corpus(streamgen.BENCH_RNGSEED, 1),
+            parts):
+        shared = on_card.canonical_key(sql) == on_card.canonical_key(sql0)
+        d0, g0, m0 = (exe.n_discoveries, exe.n_guard_failures,
+                      exe.n_memo_sig_misses)
+        got = on_card.sql(sql)
+        discovered = exe.n_discoveries - d0
+        guard_failed = exe.n_guard_failures - g0
+        memo_missed = exe.n_memo_sig_misses - m0
+        eager = exe.execute_to_host(on_card.plan(sql)[0])
+        diff = first_difference(engine_rows(eager, nulls=True),
+                                engine_rows(got, nulls=True),
+                                fixes_order(on_card.plan(sql)[0]))
+        shared_n += shared
+        replayed_n += shared and not discovered
+        if diff is not None or (shared and discovered and
+                                not (guard_failed or memo_missed)):
+            bad.append(name)
+        say("corpus check stream 1", part=name, rows=got.num_rows,
+            shared_key=shared, discoveries=discovered,
+            guard_failures=guard_failed, memo_signature_misses=memo_missed,
+            equal=diff is None,
+            **({} if diff is None else {"difference": diff}))
+    say("corpus check stream 1 summary", parts=len(parts),
+        shared_keys=shared_n, replayed=replayed_n,
+        guard_failures=exe.n_guard_failures,
+        memo_signature_misses=exe.n_memo_sig_misses,
+        seconds=time.time() - t1, card=card)
+    if bad:
+        raise AssertionError(f"stream 1 renderings wrong, or discovered "
+                             f"under a shared key with neither a guard "
+                             f"failure nor another memo signature: {bad}")
     return out
 
 
@@ -1505,16 +1637,26 @@ def keep_largest(out: dict, captured: list, n_calls: int, err: int) -> None:
             out["largest"] = c
 
 
-def corpus_run(segsum, scale: float, seed: int, card: str) -> tuple:
+def corpus_run(segsum, scale: float, seed: int, card: str,
+               kernel_parts) -> tuple:
     """Every part of the power corpus on the card over the whole
-    warehouse at ``scale``: cold and warm ms (median of 3), rows, peak
-    device bytes, host syncs, memo hits and ``segsum_decimal`` launches of
-    the cold run.  Before the counts are zeroed, one run of each part
-    holds every ``segsum_decimal`` call bit-exact against the plain
-    version at its own inputs, and the call with the most rows is checked
-    and timed as a kernel shape as in phase 4.  Returns the phase's
-    launches and that shape's record."""
+    warehouse at ``scale``, through the compiled path.  First, on a
+    session of its own, every ``segsum_decimal`` call of the parts in
+    ``kernel_parts`` held bit-exact as in ``corpus_check``, and the
+    replayed call with the most rows checked and timed as a kernel shape
+    as in phase 4.  (Those are the parts that called the kernel at the
+    check's smaller scale: a grouped sum goes to the kernel when its key
+    domain is small, and domains grow with the scale.  A part that calls
+    it here and did not there fails the phase.)  Then, with the launch
+    counts zeroed, each part cold (discovery, capture, first replay),
+    three times warm (replays, each held against the cold run) and once
+    more under ``torch.profiler`` (its ``segsum_decimal`` launches
+    counted from the replay's device events).  Last, with every graph
+    evicted, each part's plan three times eagerly, the yardstick of the
+    replays.  Returns the path's launches (the wrapper's, the profiled
+    replays') and that shape's record."""
     from ndstpu_torch import datagen
+    from ndstpu_torch.engine import torchexec
     from ndstpu_torch.engine.session import Session
     from ndstpu_torch.queries import corpus
     t0 = time.time()
@@ -1525,49 +1667,104 @@ def corpus_run(segsum, scale: float, seed: int, card: str) -> tuple:
         device_bytes=torch.cuda.memory_allocated(), card=card)
     parts = corpus()
     t1 = time.time()
-    # on a session of its own, so that the timed runs below start cold
-    # (the executor keeps each table's device copy for its session)
     sess = Session(cat, device="cuda")
     calls = {"max_abs_err": 0, "calls": 0, "largest": None}
-    for _name, sql in parts:
-        keep_largest(calls, *segsum_calls(segsum, sess, sql,
-                                          largest=True)[:3])
+    for name, sql in parts:
+        if name in kernel_parts:
+            keep_largest(calls, *segsum_calls(segsum, sess, sql,
+                                              largest=True)[:3])
     del sess
-    say("corpus segment sums", scale=scale, calls=calls["calls"],
-        max_abs_err=calls["max_abs_err"], seconds=time.time() - t1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("corpus segment sums", scale=scale, parts=sorted(kernel_parts),
+        calls=calls["calls"], max_abs_err=calls["max_abs_err"],
+        seconds=time.time() - t1)
     if calls["largest"] is None:
         raise AssertionError("the corpus made no segment-sum call")
     shape = decimal_shape(
         segsum, f"corpus main path at SF {scale:g}, largest of "
-        f"{calls['calls']} sums", *calls["largest"])
+        f"{calls['calls']} replayed sums", *calls["largest"])
     shape["max_abs_err"] = max(shape["max_abs_err"], calls["max_abs_err"])
     del calls
     gc.collect()
     torch.cuda.empty_cache()
     sess = Session(cat, device="cuda")
-    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    exe = sess.executor
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
+    sums = {"cold_ms": 0.0, "replay_warm_ms": 0.0}
     for name, sql in parts:
+        allocated = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        before = segsum.LAUNCHES
+        before = (decimal_launches(segsum), exe.n_discoveries,
+                  exe.n_captures, exe.n_evictions, exe.n_oom_retries)
         t1 = time.perf_counter()
         table = sess.sql(sql)
         torch.cuda.synchronize()
         cold = (time.perf_counter() - t1) * 1e3
-        launched = segsum.LAUNCHES - before
-        syncs, memo = sess.executor.n_syncs, sess.executor.n_memo_hits
+        cold_syncs = exe.n_syncs
+        peak = torch.cuda.max_memory_allocated()
+        cp = sess.compiled_plan(sql)
         warm = []
         for _ in range(3):
             t1 = time.perf_counter()
-            sess.sql(sql)
+            again = sess.sql(sql)
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t1) * 1e3)
+            diff = torchexec.results_differ(table, again)
+            if diff is not None:
+                raise AssertionError(f"{name}: a replay differs from its "
+                                     f"discovery run: {diff}")
+        replay_syncs, memo = exe.n_syncs, exe.n_memo_hits
+        profiled = profiled_replay(segsum, sess, sql, cp, name)
+        launched = decimal_launches(segsum) - before[0]
+        if launched and name not in kernel_parts:
+            raise AssertionError(
+                f"{name} launched segsum_decimal at SF {scale:g} but not at "
+                f"the check's scale: its calls were not held bit-exact")
+        warm_ms = statistics.median(warm)
+        sums["cold_ms"] += cold
+        sums["replay_warm_ms"] += warm_ms
         say("corpus", part=name, rows=table.num_rows, cold_ms=cold,
-            warm_median_ms=statistics.median(warm),
-            peak_bytes=torch.cuda.max_memory_allocated(), host_syncs=syncs,
-            memo_hits=memo, kernel_launches=launched, card=card)
-    launches = segsum.LAUNCHES
+            discover_ms=cp.discover_s * 1e3, capture_ms=cp.capture_s * 1e3,
+            replay_warm_ms=warm_ms,
+            replay_ms=warm, peak_bytes=peak, pool_bytes=cp.pool_bytes,
+            discovery_peak_bytes=cp.peak_bytes, allocated_before=allocated,
+            held_pool_bytes=exe.pool_bytes(), host_syncs=cold_syncs,
+            replay_host_syncs=replay_syncs, memo_hits=memo,
+            discoveries=exe.n_discoveries - before[1],
+            captures=exe.n_captures - before[2],
+            evictions=exe.n_evictions - before[3],
+            oom_retries=exe.n_oom_retries - before[4],
+            graph_kernel_calls=cp.kernel_calls,
+            replay_segsum_launches_profiled=profiled,
+            kernel_launches=launched, card=card)
+    launches = (segsum.LAUNCHES, segsum.REPLAY_LAUNCHES)
+    counts = dict(discoveries=exe.n_discoveries, captures=exe.n_captures,
+                  evictions=exe.n_evictions,
+                  guard_failures=exe.n_guard_failures,
+                  memo_signature_misses=exe.n_memo_sig_misses,
+                  oom_retries=exe.n_oom_retries)
+    # the yardstick: each plan eagerly, with no graph held
+    exe.evict_all()
+    sums["eager_warm_ms"] = 0.0
+    for name, sql in parts:
+        plan = sess.plan(sql)[0]
+        retries = exe.n_oom_retries
+        runs = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            exe.execute_to_host(plan)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t1) * 1e3)
+        sums["eager_warm_ms"] += statistics.median(runs)
+        say("corpus eager", part=name, eager_warm_ms=statistics.median(runs),
+            eager_ms=runs, host_syncs=exe.n_syncs,
+            held_pool_bytes=exe.pool_bytes(),
+            oom_retries=exe.n_oom_retries - retries, card=card)
     say("corpus summary", scale=scale, parts=len(parts),
-        seconds=time.time() - t0, kernel_launches=launches, card=card)
+        seconds=time.time() - t0, kernel_launches=launches[0],
+        replay_kernel_launches_profiled=launches[1], **counts,
+        graph_budget_bytes=exe.graph_budget, **sums, card=card)
     return launches, shape
 
 
@@ -1576,14 +1773,17 @@ def corpus_run(segsum, scale: float, seed: int, card: str) -> tuple:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scale", type=float, default=100.0)
+    ap.add_argument("--scale", type=float, default=STORE_SCALE)
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--check-scale", type=float, default=CHECK_SCALE)
+    ap.add_argument("--corpus-scale", type=float, default=CORPUS_SCALE)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from ndstpu_torch import datagen
+    from ndstpu_torch.engine import torchexec
     from ndstpu_torch.engine.session import Session
     from ndstpu_torch.ops import build, segsum
 
@@ -1607,8 +1807,10 @@ def main() -> int:
         device_bytes=torch.cuda.memory_allocated())
     sess = Session(cat, device="cuda")
 
-    # capture the kernel's inputs on the main path (a q42 run)
+    # capture the kernel's inputs on the main path (a q42 replay); its
+    # compiled plan is dropped after, so that the slice's run is cold
     captured = segsum_calls(segsum, sess, QUERIES["q42"])[0]
+    forget(sess, QUERIES["q42"])
     if len(captured) != 1 or captured[0][3] != SEGMENTS_Q42:
         raise AssertionError(f"q42 made {len(captured)} segment-sum calls "
                              f"({[c[3] for c in captured]} segments)")
@@ -1633,38 +1835,56 @@ def main() -> int:
 
     sess.executor._kernel_sum_ok = spy_gate
 
+    exe = sess.executor
+
     def run_query(q, sql, nulls=False):
-        """Cold and warm runs of one query; (rows, record)."""
-        before = (segsum.LAUNCHES, segsum.LAUNCHES_F32)
+        """Cold (discovery, capture, first replay) and warm (replay) runs
+        of one query through the compiled path; (rows, record)."""
+        before = (decimal_launches(segsum), segsum.LAUNCHES_F32,
+                  exe.n_discoveries, exe.n_captures, exe.n_oom_retries)
         routed.clear()
+        allocated = torch.cuda.memory_allocated()
+        held = exe.pool_bytes()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         out = sess.sql(sql)
         torch.cuda.synchronize()
         cold = (time.perf_counter() - t1) * 1e3
+        cold_syncs = exe.n_syncs
+        peak = torch.cuda.max_memory_allocated()
         warm = []
         for _ in range(3):
             t1 = time.perf_counter()
             again = sess.sql(sql)
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t1) * 1e3)
+            diff = torchexec.results_differ(out, again)
+            if diff is not None:
+                raise AssertionError(f"{q}: a replay differs from its "
+                                     f"discovery run: {diff}")
+        cp = sess.compiled_plan(sql)
+        profiled = profiled_replay(segsum, sess, sql, cp, q)
         got = engine_rows(out, nulls)
-        if engine_rows(again, nulls) != got:
-            raise AssertionError(f"{q}: warm run differs from cold run")
-        launched = segsum.LAUNCHES - before[0]
+        launched = decimal_launches(segsum) - before[0]
         if any(routed) and launched == 0:
             raise AssertionError(f"{q} routes sums to segsum_decimal but "
                                  f"launched it no time")
         return got, dict(
             query=q, cold_ms=cold, warm_median_ms=statistics.median(warm),
-            rows=len(got), peak_bytes=torch.cuda.max_memory_allocated(),
-            host_syncs=sess.executor.n_syncs,
-            memo_hits=sess.executor.n_memo_hits, routes_to_kernel=any(routed),
-            kernel_launches=launched,
+            rows=len(got), peak_bytes=peak, pool_bytes=cp.pool_bytes,
+            discovery_peak_bytes=cp.peak_bytes, allocated_before=allocated,
+            held_pool_bytes_before=held,
+            host_syncs=cold_syncs, replay_host_syncs=exe.n_syncs,
+            discoveries=exe.n_discoveries - before[2],
+            captures=exe.n_captures - before[3],
+            oom_retries=exe.n_oom_retries - before[4],
+            memo_hits=exe.n_memo_hits, routes_to_kernel=any(routed),
+            kernel_launches=launched, graph_kernel_calls=cp.kernel_calls,
+            replay_segsum_launches_profiled=profiled,
             f32_kernel_launches=segsum.LAUNCHES_F32 - before[1], card=card)
 
     # main path 1: the q3 family
-    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
     for q, sql in QUERIES.items():
         got, rec = run_query(q, sql)
         compare(ref.answer(REFERENCE[q]), got,
@@ -1672,14 +1892,14 @@ def main() -> int:
         say("slice", **rec)
         if q == "q42" and not rec["routes_to_kernel"]:
             raise AssertionError("q42 does not route to segsum_decimal")
-    family_launches = segsum.LAUNCHES
-    if family_launches == 0:
+    family_launches = (segsum.LAUNCHES, segsum.REPLAY_LAUNCHES)
+    if sum(family_launches) == 0:
         raise AssertionError("the slice launched no segsum_decimal")
     del ref
 
     # main path 2: the segment-sum bench
     from ndstpu_torch.ops import bench
-    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
     rec = bench.main([])
     bench_launches = (segsum.LAUNCHES, segsum.LAUNCHES_F32)
     say("bench", launches_decimal=bench_launches[0],
@@ -1693,7 +1913,7 @@ def main() -> int:
     sref = StoreReference(cat)
     want = {q: getattr(sref, q)() for q in STORE_QUERIES}
     say("store reference", seconds=time.time() - t0)
-    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
     for q, sql in STORE_QUERIES.items():
         got, rec = run_query(q, sql, nulls=True)
         if not rows_match(want[q], got):
@@ -1711,7 +1931,7 @@ def main() -> int:
         raise AssertionError(f"q88 on store {name!r}: {got} vs reference "
                              f"{want88}")
     say("store slice", store_name=name, counts=list(got[0]), **rec)
-    store_launches = segsum.LAUNCHES
+    store_launches = (segsum.LAUNCHES, segsum.REPLAY_LAUNCHES)
 
     # main path 4: the store window and rollup reports.  Their ratios and
     # averages descale decimals to float64, and the reference ranks and
@@ -1725,6 +1945,7 @@ def main() -> int:
     # the path's kernel at the path's own shape: q36's finest-grain sums,
     # each bit-exact against the plain version on its captured inputs
     captured = segsum_calls(segsum, sess, WINDOW_QUERIES["q36"])[0]
+    forget(sess, WINDOW_QUERIES["q36"])
     if not captured:
         raise AssertionError("q36 made no segment-sum call")
     for i, (vals, gid, mask, s) in enumerate(captured):
@@ -1733,7 +1954,7 @@ def main() -> int:
         k["shapes"].append(rec)
         k["max_abs_err"] = max(k["max_abs_err"], rec["max_abs_err"])
     del captured, vals, gid, mask
-    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
     for q, sql in WINDOW_QUERIES.items():
         got, rec = run_query(q, sql, nulls=True)
         compare(want[q], got, WINDOW_ORDER[q],
@@ -1741,7 +1962,7 @@ def main() -> int:
         say("window slice", **rec)
         if q == "q36" and rec["kernel_launches"] == 0:
             raise AssertionError("q36's rollup launched no segsum_decimal")
-    window_launches = segsum.LAUNCHES
+    window_launches = (segsum.LAUNCHES, segsum.REPLAY_LAUNCHES)
 
     # main path 5: set operations, DISTINCT and distinct aggregates
     t0 = time.time()
@@ -1755,6 +1976,7 @@ def main() -> int:
     routed_calls = {}
     for q, sql in SETOP_QUERIES.items():
         captured, n_calls, err, _ = segsum_calls(segsum, sess, sql, keep=1)
+        forget(sess, sql)
         routed_calls[q] = n_calls
         k["max_abs_err"] = max(k["max_abs_err"], err)
         k["shapes"].extend(decimal_shape(
@@ -1762,7 +1984,7 @@ def main() -> int:
             for c in captured)
         del captured
     say("setop segment sums", calls=routed_calls)
-    segsum.LAUNCHES = segsum.LAUNCHES_F32 = 0
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
     setop_orders = {"q28": None, "q41": lambda r: r[:1],
                     "q76": lambda r: r[:5], "q2": lambda r: r[:1]}
     for q, sql in SETOP_QUERIES.items():
@@ -1780,24 +2002,25 @@ def main() -> int:
         "limit 100", ""), nulls=True)
     compare(want["q76"], got, setop_orders["q76"], limit=None)
     say("setop slice", channels=sorted({r[0] for r in got}), **rec)
-    setop_launches = segsum.LAUNCHES
-    if any(routed_calls.values()) and not setop_launches:
+    setop_launches = (segsum.LAUNCHES, segsum.REPLAY_LAUNCHES)
+    if any(routed_calls.values()) and not sum(setop_launches):
         raise AssertionError("the path routes sums to segsum_decimal but "
                              "launched it no time")
 
     # the whole warehouse: free the store channel's first
-    del cat, sess, gate, spy_gate, run_query, got, want
+    del cat, sess, exe, gate, spy_gate, run_query, got, want
     gc.collect()
     torch.cuda.empty_cache()
     say("freed", device_bytes=torch.cuda.memory_allocated())
 
     # the corpus, checked against the port's CPU run at the check scale;
     # the check's call with the most rows checked and timed as a shape
-    check = corpus_check(segsum, CHECK_SCALE, args.seed, card)
+    check = corpus_check(segsum, args.check_scale, args.seed, card)
+    kernel_parts = check["kernel_parts"]
     k["max_abs_err"] = max(k["max_abs_err"], check["max_abs_err"])
     if check["largest"] is not None:
         k["shapes"].append(decimal_shape(
-            segsum, f"corpus check at SF {CHECK_SCALE:g}, largest of "
+            segsum, f"corpus check at SF {args.check_scale:g}, largest of "
             f"{check['calls']} sums", *check["largest"]))
     del check
     gc.collect()
@@ -1805,11 +2028,11 @@ def main() -> int:
 
     # main path 6: the whole corpus at the run scale, its kernel checked
     # and timed at the path's own inputs first
-    corpus_launches, shape = corpus_run(segsum, CORPUS_SCALE, args.seed,
-                                        card)
+    corpus_launches, shape = corpus_run(segsum, args.corpus_scale,
+                                        args.seed, card, kernel_parts)
     k["shapes"].append(shape)
     k["max_abs_err"] = max(k["max_abs_err"], shape["max_abs_err"])
-    if corpus_launches == 0:
+    if sum(corpus_launches) == 0:
         raise AssertionError("the corpus launched no segsum_decimal")
 
     print(card)
@@ -1818,14 +2041,22 @@ def main() -> int:
         "source": "ndstpu_torch/ops/csrc/segsum_decimal.cu",
         "replaces": "ndstpu/ops/segsum.py:141",
         "tpu_kernel": "ndstpu/ops/segsum.py::_limb_kernel",
-        "launches": family_launches + bench_launches[0] + store_launches +
-        window_launches + setop_launches + corpus_launches,
-        "launches_by_path": {"q3 family": family_launches,
+        "launches": sum(family_launches) + bench_launches[0] +
+        sum(store_launches) + sum(window_launches) + sum(setop_launches) +
+        sum(corpus_launches),
+        "launches_by_path": {"q3 family": sum(family_launches),
                              "bench": bench_launches[0],
-                             "store slice": store_launches,
-                             "store window reports": window_launches,
-                             "set operations and distinct": setop_launches,
-                             "corpus": corpus_launches},
+                             "store slice": sum(store_launches),
+                             "store window reports": sum(window_launches),
+                             "set operations and distinct":
+                             sum(setop_launches),
+                             "corpus": sum(corpus_launches)},
+        "replay_launches_by_path": {
+            "q3 family": family_launches[1], "bench": 0,
+            "store slice": store_launches[1],
+            "store window reports": window_launches[1],
+            "set operations and distinct": setop_launches[1],
+            "corpus": corpus_launches[1]},
         "max_abs_err": k["max_abs_err"],
         "ms": k["call_ms"], "kernel_ms": k["call_ms"],
         "device_ms": k["device_ms"],

@@ -2,9 +2,11 @@
 
 Executes the optimized logical plans of ``ndstpu_torch.engine.plan`` on
 torch tensors that live on one device (``cuda``, or ``cpu`` when the
-caller asks for it).  This is the eager executor, the counterpart of
-``jaxexec.JaxExecutor``; the compiling executor with its discovery and
-replay is a later slice.
+caller asks for it).  :class:`TorchExecutor` is the eager executor, the
+counterpart of ``jaxexec.JaxExecutor``; :class:`CompilingExecutor` is
+the counterpart of ``jaxexec.CompilingExecutor``: the first run of a
+query key discovers its size plan eagerly, every later run replays it,
+on CUDA as one captured ``torch.cuda.CUDAGraph``.
 
 Design, kept from jaxexec:
 
@@ -12,11 +14,16 @@ Design, kept from jaxexec:
   vector.  Filters only AND the mask; compaction happens at the few points
   that need it (LIMIT, a window's input, each grouping set's groups), and
   data-dependent output sizes (join fan-out) sync one scalar to the host.
-  jaxexec pads every table to a power-of-two size class so XLA retraces
-  per class, not per row count; eager PyTorch does not retrace, so the
-  port sizes tables exactly (at least one row).
-  Padding comes back with the CUDA-graph replay slice, where captured
-  shapes must be static.
+  Eager runs size each such output exactly (at least one row); discovery
+  and replay pad it to a capacity class (:func:`size_class`), because a
+  captured graph's shapes are static.
+* **Three modes** (``TorchExecutor.mode``): ``eager`` runs the plan;
+  ``discover`` runs it too, and records every data-dependent decision
+  (capacities, branch bools, subquery results) in a *size plan*, and every
+  table it builds on the host for the device (dictionary translations, hit
+  tables) as a device constant; ``replay`` re-runs the plan from that
+  record with no host sync: each recorded decision adds a device guard
+  (count <= capacity, branch unchanged), read back once with the result.
 * **Sort-based relational operators.**  Group-by = lexicographic stable
   sort → adjacent-difference dense group ids → segment reductions (exact
   int64 for decimals), or linearized ids over a small static key domain.
@@ -31,13 +38,22 @@ Design, kept from jaxexec:
 
 There is no numpy fallback: a plan node or expression without a port
 raises :class:`Unsupported`, with the NDS2xx code jaxexec uses where it
-has one, so no plan quietly leaves the device.
+has one, so no plan quietly leaves the device.  Nor is there a fallback
+from replay to eager: a capture or replay error raises.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import gc
+import os
+import pickle
 import re
+import threading
+import time
+import uuid
 import warnings
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -68,6 +84,7 @@ _NULL32 = -(2 ** 30)
 _DEAD32 = 2 ** 30
 _ORD_DEAD32 = 2 ** 30 + 1   # order keys: dead strictly last
 _NARROW_LIM = 2 ** 30       # |value| bound for int32 keys
+_MIN_CAPACITY = 256
 
 # aggregate registries (ndstpu/analysis/lowering.py SUPPORTED_AGG_FUNCS,
 # DISTINCT_AGG_FUNCS), kept as literals: the port imports nothing of ndstpu
@@ -100,6 +117,23 @@ _TORCH_DTYPES = {
 
 def torch_dtype(ct: DType) -> torch.dtype:
     return _TORCH_DTYPES[ct.kind]
+
+
+def size_class(n: int) -> int:
+    """The capacity class of a data-dependent size ``n`` (discovery and
+    replay; eager runs size exactly): the least of 256, 320, 384, 448,
+    512, 640, ... that holds ``n`` — four classes an octave, each a
+    quarter of a power of two apart.  jaxexec rounds up to a power of two;
+    at SF 20 that can double a join expansion, and the expansion's
+    ``cummax`` and scatter are most of the corpus's device time, so the
+    port pads by at most a quarter.  A rendering whose counts stay under
+    the recorded classes replays; one that outgrows them fails its guard
+    (count <= capacity) and is rediscovered."""
+    n = max(int(n), 1)
+    if n <= _MIN_CAPACITY:
+        return _MIN_CAPACITY
+    step = 1 << ((n - 1).bit_length() - 3)
+    return -(-n // step) * step
 
 
 def resolve_device(device=None) -> torch.device:
@@ -349,33 +383,125 @@ def to_host(dt: DTable) -> Table:
     return Table(cols)
 
 
+class _Drift(RuntimeError):
+    """A replay asked for something other than what its discovery
+    recorded: the record does not belong to this plan (a preloaded record
+    gone stale), never a data change."""
+
+
+class _ConstRecord:
+    """The host-built device tables of one run, in the order the run asks
+    for them (:func:`_const`).  Discovery builds each and keeps it
+    (``record``); replay takes the kept tensor at the same position, so a
+    captured graph reads tensors that live as long as its compiled plan
+    and replay copies nothing from the host."""
+
+    def __init__(self, consts: list, replay: bool):
+        self.consts = consts
+        self.replay = replay
+        self.pos = 0
+
+    def take(self, host: np.ndarray, device) -> torch.Tensor:
+        if not self.replay:
+            t = torch.as_tensor(host).to(device)
+            self.consts.append((host, t))
+            return t
+        j = self.pos
+        self.pos += 1
+        if j >= len(self.consts):
+            raise _Drift("device-constant drift (more asked than recorded)")
+        kept, t = self.consts[j]
+        if kept.dtype != host.dtype or kept.shape != host.shape:
+            raise _Drift(f"device-constant drift at {j}: recorded "
+                         f"{kept.dtype}{kept.shape}, asked "
+                         f"{host.dtype}{host.shape}")
+        return t
+
+
+_ACTIVE_CONSTS = threading.local()
+
+
+@contextlib.contextmanager
+def _consts_bound(rec: Optional[_ConstRecord]):
+    """Install the device-constant record of a discovery or replay run
+    (None: an eager run, or an eager subquery inside one)."""
+    prev = getattr(_ACTIVE_CONSTS, "rec", None)
+    _ACTIVE_CONSTS.rec = rec
+    try:
+        yield
+    finally:
+        _ACTIVE_CONSTS.rec = prev
+
+
+def _const(host: np.ndarray, device) -> torch.Tensor:
+    """A host-built table on ``device``: copied now in an eager run, kept
+    by discovery, taken from the record in replay (no host-to-device copy
+    inside a capture)."""
+    host = np.ascontiguousarray(host)
+    rec = getattr(_ACTIVE_CONSTS, "rec", None)
+    if rec is None:
+        return torch.as_tensor(host).to(device)
+    return rec.take(host, device)
+
+
+def _nonzero_static(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """The positions of ``mask``'s true entries in order, padded with 0
+    (or cut) to ``size``: ``torch.nonzero`` without its host sync, as a
+    cumulative count and a scatter whose destinations are unique, all but
+    one trash slot."""
+    pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+    dest = torch.where(mask & (pos < size), pos, size)
+    out = torch.zeros(size + 1, dtype=torch.int64, device=mask.device)
+    out[dest] = torch.arange(mask.shape[0], dtype=torch.int64,
+                             device=mask.device)
+    return out[:size]
+
+
+def _isin(x: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
+    """``torch.isin(x, test)`` by a sorted search: ``torch.isin`` takes a
+    path through ``unique`` (a host sync) for longer lists."""
+    if test.numel() == 0:
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    s = torch.sort(test.reshape(-1)).values
+    i = torch.clamp(torch.searchsorted(s, x), max=s.numel() - 1)
+    return s[i] == x
+
+
 def _any_none(xs) -> bool:
     return any(x is None for x in xs)
 
 
-def _plan_fp(o, out: Optional[list] = None) -> Optional[str]:
+def _plan_fp(o, out: Optional[list] = None,
+             values: Optional[Sequence[object]] = None) -> Optional[str]:
     """Structural fingerprint of a plan/expression tree
     (jaxexec._plan_fp).  Unlike ``repr`` it covers every dataclass field
     (Literal's repr hides its ctype).  The port uses it only within one
     plan (aggregate leaves, the plan-subtree memo), so an inline table is
     keyed by the identity of its table, which lives as long as the
-    plan."""
+    plan.  With ``values`` (a binding's slot values) a parameter reads
+    as its bound value, as the literal it was lifted from would."""
     top = out is None
     if top:
         out = []
     if isinstance(o, lp.InlineTable):
         out.append(f"IT{id(o.table)}")
+    elif values is not None and isinstance(o, ex.Param) and not o.shape:
+        out.append(f"V{o.ctype!r}={values[o.slot]!r}")
+    elif values is not None and isinstance(o, ex.InParam):
+        out.append(f"VIN{o.negated}={values[o.slot]!r}(")
+        _plan_fp(o.operand, out, values)
+        out.append(")")
     elif dataclasses.is_dataclass(o) and not isinstance(o, type):
         out.append(type(o).__name__)
         out.append("(")
         for f in dataclasses.fields(o):
-            _plan_fp(getattr(o, f.name), out)
+            _plan_fp(getattr(o, f.name), out, values)
             out.append(",")
         out.append(")")
     elif isinstance(o, (list, tuple)):
         out.append("[")
         for x in o:
-            _plan_fp(x, out)
+            _plan_fp(x, out, values)
             out.append(",")
         out.append("]")
     elif isinstance(o, np.ndarray):
@@ -395,38 +521,66 @@ _MEMO_NODES = (lp.Join, lp.Aggregate, lp.SetOp, lp.Window, lp.Distinct,
                lp.Sort)
 
 
-def _memo_key(p: lp.Plan) -> Optional[str]:
+def _memo_key(p: lp.Plan,
+              values: Optional[Sequence[object]] = None) -> Optional[str]:
     """The memo key of a memo node, or None (not a memo node, or a leaf
-    with no content-based fingerprint: that node is not memoized)."""
+    with no content-based fingerprint: that node is not memoized).
+    Under a binding (``values``) two subtrees whose parameters hold equal
+    values share a key, as the literal plan's subtrees would: the
+    canonicalizer gives every literal occurrence its own slot, so slot
+    numbers alone would keep a CTE's copies apart."""
     if not isinstance(p, _MEMO_NODES):
         return None
     try:
-        return _plan_fp(p)
+        return _plan_fp(p, values=values)
     except TypeError:
         return None
 
 
-def _memo_uses(p: lp.Plan) -> Dict[str, int]:
-    """Memo key -> times the executor will ask for it, for every memo
-    subtree of ``p`` asked for at least twice.  The walk follows the
-    executor's order: the first occurrence of a key runs (and is walked
-    into), each later one is a memo hit whose subtree never runs, so it
-    is not walked into.  The keys are exactly where the reference's memo
-    hits, and nothing else is retained.  Subquery plans live in
-    expressions, not children: each is counted on its own."""
-    uses: Dict[str, int] = {}
+def _memo_walk(p: lp.Plan,
+               values: Optional[Sequence[object]] = None) -> List[str]:
+    """The memo keys the executor asks for, in its order: the first
+    occurrence of a key runs (and is walked into), each later one is a
+    memo hit whose subtree never runs, so it is not walked into.
+    Subquery plans live in expressions, not children: each is walked on
+    its own."""
+    keys: List[str] = []
+    seen = set()
 
     def walk(q: lp.Plan):
-        key = _memo_key(q)
+        key = _memo_key(q, values)
         if key is not None:
-            uses[key] = uses.get(key, 0) + 1
-            if uses[key] > 1:
+            keys.append(key)
+            if key in seen:
                 return
+            seen.add(key)
         for c in q.children():
             walk(c)
 
     walk(p)
+    return keys
+
+
+def _memo_uses(p: lp.Plan,
+               values: Optional[Sequence[object]] = None) -> Dict[str, int]:
+    """Memo key -> times the executor will ask for it, for every memo
+    subtree of ``p`` asked for at least twice: exactly where the
+    reference's memo hits, and nothing else is retained."""
+    uses: Dict[str, int] = {}
+    for key in _memo_walk(p, values):
+        uses[key] = uses.get(key, 0) + 1
     return {k: n for k, n in uses.items() if n > 1}
+
+
+def _memo_signature(p: lp.Plan,
+                    values: Optional[Sequence[object]]) -> Tuple[int, ...]:
+    """Which memo asks of ``p`` share a result under a binding: each ask
+    numbered by the first ask of its key.  A replay runs the sharing its
+    discovery recorded, so a binding whose parameters are equal in other
+    places than the discovered one's cannot replay it."""
+    first: Dict[str, int] = {}
+    return tuple(first.setdefault(k, len(first))
+                 for k in _memo_walk(p, values))
 
 
 class Unsupported(Exception):
@@ -484,8 +638,8 @@ def _like_to_regex(pattern: str) -> str:
 def _dict_lookup_bool(c: DCol, fn) -> torch.Tensor:
     """Host predicate per dictionary entry -> device bool gather."""
     hits = np.array([bool(fn(str(x))) for x in c.dictionary], dtype=bool)
-    table = torch.as_tensor(np.concatenate([hits, [False]])).to(
-        c.data.device)                                    # -1 -> False
+    table = _const(np.concatenate([hits, [False]]),
+                   c.data.device)                         # -1 -> False
     return table[c.data]
 
 
@@ -496,8 +650,8 @@ def _dict_remap(c: DCol, fn) -> DCol:
         np.empty(0, dtype=str)
     remap = (np.searchsorted(uniq, np.asarray(vals, dtype=str))
              .astype(np.int32) if vals else np.empty(0, np.int32))
-    table = torch.as_tensor(np.concatenate([remap, [-1]]).astype(
-        np.int32)).to(c.data.device)
+    table = _const(np.concatenate([remap, [-1]]).astype(np.int32),
+                   c.data.device)
     return DCol(table[c.data], c.valid, STRING, uniq.astype(object))
 
 
@@ -512,8 +666,7 @@ def _translate(c: DCol, merged: np.ndarray) -> torch.Tensor:
     hit = merged[posc] == c.dictionary.astype(str) if len(merged) else \
         np.zeros(len(c.dictionary), dtype=bool)
     mapping = np.where(hit, posc, -2).astype(np.int32)
-    table = torch.as_tensor(
-        np.concatenate([mapping, [-2]]).astype(np.int32)).to(dev)
+    table = _const(np.concatenate([mapping, [-2]]).astype(np.int32), dev)
     return table[c.data]
 
 
@@ -525,6 +678,168 @@ def _merged_dict(cols: Sequence[DCol]) -> np.ndarray:
     return np.unique(np.concatenate(parts))
 
 
+# ---------------------------------------------------------------------------
+# bound parameters (canonical plans)
+# ---------------------------------------------------------------------------
+#
+# Canonicalized plans (ndstpu_torch.analysis.canon) carry ex.Param /
+# ex.InParam where the SQL text had literals.  Each execution binds them
+# through an ex.ParamBinding, so one compiled plan serves every rendering
+# of a template.  Scalars reach the device as one value each; a string
+# parameter as a hit table over the dictionary it is compared with, and
+# an IN-list parameter as a vector.  Those tables are recorded in order
+# (the plan's ``param_spec``) during discovery, so that replay rebuilds
+# them for any later binding and finds them positionally (jaxexec.py
+# :681-875).
+
+
+_ACTIVE_PARAMS = threading.local()
+
+
+def _active_params() -> Optional["_ParamCtx"]:
+    return getattr(_ACTIVE_PARAMS, "ctx", None)
+
+
+def _param_scalar_np(value, ctype: DType):
+    """Host conversion of one bound scalar to its device representation
+    (mirrors JEval._lit dtype choices, minus the point bounds)."""
+    if ctype.kind == "bool":
+        return np.bool_(value)
+    if ctype.kind == "decimal":
+        v = value * 10 ** ctype.scale if isinstance(value, int) \
+            else round(value * 10 ** ctype.scale)
+        return np.int64(v)
+    if ctype.kind == "float64":
+        return np.float64(value)
+    if ctype.kind in ("int32", "date"):
+        return np.int32(value)
+    if ctype.kind == "int64":
+        return np.int64(value)
+    raise Unsupported(f"parameter scalar {ctype.kind}", code="NDS201")
+
+
+_PDICT_OPS = {
+    "=": lambda a, b: a == b, "<>": lambda a, b: a != b,
+    "<": lambda a, b: a < b, "<=": lambda a, b: a <= b,
+    ">": lambda a, b: a > b, ">=": lambda a, b: a >= b,
+}
+
+
+def _pdict_hits(value, op: str, swapped: bool, dictionary) -> np.ndarray:
+    """Hit table over a sorted string dictionary for one bound string
+    value (or IN tuple): len(dict)+1 bools, last entry False so the -1
+    NULL code gathers False (cf. _dict_lookup_bool).  Host python string
+    comparison matches np.unique's lexicographic dictionary order, so
+    ordered operators agree with the merged-dict literal path."""
+    if op == "in":
+        vals = set(str(v) for v in value)
+        hits = [str(x) in vals for x in dictionary]
+    else:
+        fn = _PDICT_OPS[op]
+        v = str(value)
+        hits = [fn(v, str(x)) if swapped else fn(str(x), v)
+                for x in dictionary]
+    return np.asarray(hits + [False], dtype=bool)
+
+
+def _pvec_np(values, ctype: DType) -> np.ndarray:
+    """Coerced device-representation vector for a bound IN-list over a
+    numeric/date operand (mirrors JEval._in_list's literal path: decimal
+    values arrive scale-shifted from coerce_in_values)."""
+    vals, _had_null = ex.coerce_in_values(ctype, values)
+    if ctype.kind == "float64":
+        return np.array(vals, dtype=np.float64)
+    return np.array(vals, dtype=np.int64)
+
+
+class _ParamCtx:
+    """One execution's bound parameters.
+
+    mode ``concrete``: ``values`` holds python literals; hit tables and
+    vectors are built on the host directly (and appended to ``spec`` when
+    ``record`` is set, i.e. during discovery).  mode ``replay``: scalars,
+    tables and vectors are read from ``bufs``, the device buffers that
+    :func:`_param_args_np` filled for this binding; non-scalar entries pop
+    ``spec`` positionally, exactly like the size-plan record."""
+
+    def __init__(self, values, mode: str, spec: Optional[list] = None,
+                 bufs: Optional[dict] = None, record: bool = False):
+        self.values = values
+        self.mode = mode
+        self.spec = spec if spec is not None else []
+        self.pos = 0
+        self.bufs = bufs if bufs is not None else {}
+        self.record = record
+
+    def _pop(self, kind: str) -> int:
+        j = self.pos
+        self.pos += 1
+        if j >= len(self.spec) or self.spec[j][0] != kind:
+            raise _Drift(f"param-spec drift (expected {kind})")
+        return j
+
+    def scalar(self, slot: int, ctype: DType, cap: int,
+               device) -> DCol:
+        if self.mode == "replay":
+            data = self.bufs[f"s{slot}"].expand(cap)
+        else:
+            v = _param_scalar_np(self.values[slot], ctype)
+            data = torch.full((cap,), v.item(), dtype=torch_dtype(ctype),
+                              device=device)
+        return DCol(data, torch.ones(cap, dtype=torch.bool, device=device),
+                    ctype)
+
+    def str_table(self, slot: int, op: str, swapped: bool, dictionary,
+                  device) -> torch.Tensor:
+        if self.mode == "replay":
+            return self.bufs[f"d{self._pop('pdict')}"]
+        if self.record:
+            self.spec.append(("pdict", slot, op, swapped,
+                              np.asarray(dictionary, dtype=object)))
+        return torch.as_tensor(_pdict_hits(self.values[slot], op, swapped,
+                                           dictionary)).to(device)
+
+    def num_vec(self, slot: int, ctype: DType, device) -> torch.Tensor:
+        if self.mode == "replay":
+            return self.bufs[f"v{self._pop('pvec')}"]
+        if self.record:
+            self.spec.append(("pvec", slot, ctype))
+        return torch.as_tensor(_pvec_np(self.values[slot], ctype)).to(device)
+
+
+@contextlib.contextmanager
+def _params_bound(ctx: Optional[_ParamCtx]):
+    """Install a parameter context for the evaluator for the dynamic
+    extent (None: no parameters, as in an eager subquery)."""
+    prev = getattr(_ACTIVE_PARAMS, "ctx", None)
+    _ACTIVE_PARAMS.ctx = ctx
+    try:
+        yield
+    finally:
+        _ACTIVE_PARAMS.ctx = prev
+
+
+def _param_args_np(spec, binding: Optional[ex.ParamBinding]) -> dict:
+    """Host arguments of one compiled plan under one binding: every
+    bindable scalar slot plus one hit table / coerced vector per recorded
+    spec entry.  Replay copies them into the plan's device buffers."""
+    out = {}
+    if binding is None:
+        return out
+    for slot, ctype in binding.scalars:
+        out[f"s{slot}"] = np.asarray(
+            _param_scalar_np(binding.values[slot], ctype))
+    for j, ent in enumerate(spec or ()):
+        if ent[0] == "pdict":
+            _tag, slot, op, swapped, dic = ent
+            out[f"d{j}"] = _pdict_hits(binding.values[slot], op,
+                                       swapped, dic)
+        else:
+            _tag, slot, ctype = ent
+            out[f"v{j}"] = _pvec_np(binding.values[slot], ctype)
+    return out
+
+
 class JEval:
     """Evaluates an Expr over a DTable with torch ops (jaxexec.JEval).
 
@@ -532,7 +847,7 @@ class JEval:
     tests, arithmetic, ``||``, CASE, IN-lists and the scalar functions.
     String functions work on the dictionary: a host-side table of the
     dictionary's values, then a gather of the codes on the device.
-    Parameters (canonical plans) are not ported yet."""
+    Parameters of canonical plans read the active :class:`_ParamCtx`."""
 
     _CMP = {"=", "<>", "<", "<=", ">", ">="}
     _ARITH = {"+", "-", "*", "/", "%"}
@@ -686,8 +1001,8 @@ class JEval:
         raise Unsupported(f"cast {c.ctype} -> {target}", code="NDS204")
 
     def _dict_table(self, c: DCol, vals: np.ndarray, ok: np.ndarray):
-        data = torch.as_tensor(vals).to(self.device)[c.data]
-        valid = c.valid & torch.as_tensor(ok).to(self.device)[c.data]
+        data = _const(vals, self.device)[c.data]
+        valid = c.valid & _const(ok, self.device)[c.data]
         return data, valid
 
     def _string_parse_float(self, c: DCol):
@@ -732,6 +1047,10 @@ class JEval:
             return self._func(e)
         if isinstance(e, ex.InList):
             return self._in_list(e)
+        if isinstance(e, ex.Param):
+            return self._param(e)
+        if isinstance(e, ex.InParam):
+            return self._in_param(e)
         raise Unsupported(f"expr {type(e).__name__}", code="NDS201")
 
     def predicate(self, e: ex.Expr) -> torch.Tensor:
@@ -755,6 +1074,10 @@ class JEval:
                 data = ld | rd
                 valid = (lc.valid & rc.valid) | ld | rd
             return DCol(data, valid, BOOL)
+        if op in self._CMP:
+            pc = self._param_compare(e, op)
+            if pc is not None:
+                return pc
         lc, rc = self.eval(e.left), self.eval(e.right)
         if op in self._CMP:
             return self._compare(op, lc, rc)
@@ -810,9 +1133,9 @@ class JEval:
                                     device=self.device), DATE)
         codes_ok = c.data >= 0
         idx = torch.clamp(c.data, 0, len(days) - 1)
-        days_t = torch.as_tensor(days).to(self.device)
+        days_t = _const(days, self.device)
         out = torch.where(codes_ok, days_t[idx], torch.zeros_like(days_t[idx]))
-        valid = c.valid & codes_ok & torch.as_tensor(ok).to(self.device)[idx]
+        valid = c.valid & codes_ok & _const(ok, self.device)[idx]
         return DCol(out.to(torch.int32), valid, DATE)
 
     def _arith(self, op: str, lc: DCol, rc: DCol) -> DCol:
@@ -940,6 +1263,66 @@ class JEval:
                       max(b[1] for b in branch_bounds))
         return DCol(data, valid, tgt, bounds=bounds)
 
+    # -- bound parameters (canonical plans) ----------------------------------
+
+    def _param(self, e: ex.Param) -> DCol:
+        ctx = _active_params()
+        if ctx is None or e.shape:
+            raise Unsupported(f"unbound parameter S{e.slot}",
+                              code="NDS201")
+        if e.ctype.kind == "string":
+            # string scalars only bind through the dictionary-compare /
+            # IN intercepts; reaching generic eval means the
+            # canonicalizer lifted a string the device cannot broadcast
+            raise Unsupported("string parameter outside dictionary "
+                              "context", code="NDS206")
+        return ctx.scalar(e.slot, e.ctype, self.cap, self.device)
+
+    def _param_compare(self, e: ex.BinOp, op: str) -> Optional[DCol]:
+        """String-parameter comparison: host hit table over the other
+        side's dictionary (the parametric twin of the literal-string
+        merged-dict path).  jaxexec compares a frozen global dictionary's
+        code for = and <> where it has one; the port's dictionaries are
+        per column, so every operator takes the hit table."""
+        ctx = _active_params()
+        if ctx is None:
+            return None
+        for par, other, swapped in ((e.right, e.left, False),
+                                    (e.left, e.right, True)):
+            if isinstance(par, ex.Param) and not par.shape and \
+                    par.ctype.kind == "string":
+                oc = self.eval(other)
+                if oc.ctype.kind != "string" or oc.dictionary is None:
+                    raise Unsupported("string parameter vs non-dictionary"
+                                      " operand", code="NDS206")
+                table = ctx.str_table(par.slot, op, swapped,
+                                      oc.dictionary, self.device)
+                return DCol(table[oc.data], oc.valid, BOOL)
+        return None
+
+    def _in_param(self, e: ex.InParam) -> DCol:
+        ctx = _active_params()
+        if ctx is None:
+            raise Unsupported(f"unbound parameter P{e.slot}",
+                              code="NDS201")
+        c = self.eval(e.operand)
+        if c.ctype.kind == "string":
+            if c.dictionary is None:
+                raise Unsupported("IN parameter on non-dictionary "
+                                  "string", code="NDS206")
+            table = ctx.str_table(e.slot, "in", False, c.dictionary,
+                                  self.device)
+            data = table[c.data]
+        else:
+            vec = ctx.num_vec(e.slot, c.ctype, self.device)
+            dt = torch.promote_types(c.data.dtype, vec.dtype)
+            data = _isin(c.data.to(dt), vec.to(dt))
+        if e.negated:
+            # the canonicalizer only lifts NULL-free IN-lists, so plain
+            # complement is exact (no three-valued NOT IN hazard)
+            data = ~data
+        return DCol(data, c.valid, BOOL)
+
     def _concat_pair(self, a: DCol, b: DCol) -> DCol:
         """String concatenation on dictionary codes.  One-sided literal:
         host remap of the other side's dictionary.  Dict x dict: host
@@ -959,9 +1342,9 @@ class JEval:
 
         def encode(vals: np.ndarray):
             uniq, remap = np.unique(vals, return_inverse=True)
-            table = torch.as_tensor(np.concatenate(
+            table = _const(np.concatenate(
                 [remap.reshape(-1).astype(np.int64), [-1]]).astype(
-                    np.int32)).to(self.device)
+                    np.int32), self.device)
             return uniq.astype(object), table
 
         if na == 1 or nb == 1:
@@ -1038,8 +1421,7 @@ class JEval:
             c = self._as_string(e.args[0])
             lens = np.array([len(str(x)) for x in c.dictionary] + [0],
                             dtype=np.int32)
-            return DCol(torch.as_tensor(lens).to(self.device)[c.data],
-                        c.valid, INT32)
+            return DCol(_const(lens, self.device)[c.data], c.valid, INT32)
         if name == "abs":
             c = self.eval(e.args[0])
             return DCol(torch.abs(c.data), c.valid, c.ctype)
@@ -1098,9 +1480,9 @@ class JEval:
                                       f"{c.ctype.kind} column",
                                       code="NDS212")
                 # compare in the promoted type, as jnp.isin does
-                test = torch.as_tensor(arr).to(self.device)
+                test = _const(arr, self.device)
                 dt = torch.promote_types(c.data.dtype, test.dtype)
-                data = torch.isin(c.data.to(dt), test.to(dt))
+                data = _isin(c.data.to(dt), test.to(dt))
         if e.negated:
             # x NOT IN (..., NULL) is never TRUE (NULL semantics)
             data = torch.zeros_like(data) if had_null else ~data
@@ -1219,12 +1601,13 @@ def _group_ids(keys: List[torch.Tensor]
     """Dense group ids by one lexicographic sort: (gid int32, order,
     newgrp)."""
     n = keys[0].shape[0]
+    dev = keys[0].device
     order = _lexsort_order(keys)
-    diff = torch.zeros(n, dtype=torch.bool, device=keys[0].device)
-    diff[:1] = True
+    change = torch.zeros(n - 1, dtype=torch.bool, device=dev)
     for k in keys:
         ks = k[order]
-        diff[1:] |= ks[1:] != ks[:-1]
+        change |= ks[1:] != ks[:-1]
+    diff = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), change])
     gid_sorted = torch.cumsum(diff, 0, dtype=torch.int32) - 1
     gid = _inv_permute(order, gid_sorted)
     return gid, order, diff
@@ -1276,13 +1659,17 @@ def _key_col(c: DCol, alive: torch.Tensor) -> torch.Tensor:
 
 
 class TorchExecutor:
-    """Eager plan executor on torch tensors (jaxexec.JaxExecutor).
+    """Plan executor on torch tensors (jaxexec.JaxExecutor), in one of
+    three modes (``eager``, ``discover``, ``replay``: the module note).
+    :meth:`execute_to_host` runs a plan eagerly;
+    :class:`CompilingExecutor` adds discovery and replay.
 
-    ``n_syncs`` counts the host syncs of the last query: each
-    data-dependent capacity (join fan-out, compaction), each bounds
-    check, each branch decision and each subquery result reads back from
-    the device once.  ``n_memo_hits`` counts the memo hits of the last
-    query.
+    ``n_syncs`` counts the host syncs of the last query: in an eager or
+    discovery run each data-dependent capacity (join fan-out,
+    compaction), each bounds check, each branch decision and each
+    subquery result reads back from the device once; a replay reads back
+    once, its guards and its result together.  ``n_memo_hits`` counts the
+    memo hits of the last query.
 
     The plan-subtree memo (jaxexec's ``_tree_cache``) runs each repeated
     Join/Aggregate/SetOp/Window/Distinct/Sort subtree once a query.  It
@@ -1320,20 +1707,42 @@ class TorchExecutor:
         # for it still to come (the key is dropped after its last)
         self._memo: Dict[str, DTable] = {}
         self._memo_left: Dict[str, int] = {}
+        self._memo_values: Optional[Sequence[object]] = None
+        # discovery writes the size plan, replay reads it: ("cap", n),
+        # ("bool", b) and ("subq", expr) records, in the order the run
+        # meets its sync points; replay appends a device guard for each
+        self.mode = "eager"
+        self._rec: Optional[list] = None
+        self._pos = 0
+        self._oks: Optional[List[torch.Tensor]] = None
 
     # -- public --------------------------------------------------------------
 
     def execute_to_host(self, p: lp.Plan) -> Table:
-        self.n_syncs = self.n_memo_hits = 0
-        self._subq_cache = {}
-        self._memo, self._memo_left = {}, _memo_uses(p)
+        """Run ``p`` eagerly (exact sizes) and bring its result to the
+        host."""
+        self._begin(p, "eager")
         try:
             return to_host(self.execute(p))
         finally:
-            self._memo, self._memo_left = {}, {}
+            self._end()
+
+    def _begin(self, p: lp.Plan, mode: str,
+               values: Optional[Sequence[object]] = None) -> None:
+        """Reset the per-query state for one run of ``p`` in ``mode``
+        (under a binding's ``values``, for a parameterized plan)."""
+        self.mode = mode
+        self.n_syncs = self.n_memo_hits = 0
+        self._subq_cache = {}
+        self._memo_values = values
+        self._memo, self._memo_left = {}, _memo_uses(p, values)
+
+    def _end(self) -> None:
+        self.mode = "eager"
+        self._memo, self._memo_left = {}, {}
 
     def execute(self, p: lp.Plan) -> DTable:
-        key = _memo_key(p) if self._memo_left else None
+        key = _memo_key(p, self._memo_values) if self._memo_left else None
         if key not in self._memo_left:
             return self._execute_node(p)
         self._memo_left[key] -= 1
@@ -1361,40 +1770,79 @@ class TorchExecutor:
 
     # -- sync points -----------------------------------------------------------
 
-    def _capacity_for(self, count) -> Tuple[int, int]:
-        """Host-sync a data-dependent output count: (capacity, count).
-        The capacity is exact (at least 1) — see the module note on
-        padding."""
+    def _pop(self, tag: str):
+        """The next size-plan record of a replay, which must be ``tag``."""
+        j = self._pos
+        self._pos += 1
+        if j >= len(self._rec) or self._rec[j][0] != tag:
+            raise _Drift(f"size-plan drift (expected {tag})")
+        return self._rec[j][1]
+
+    def _capacity_for(self, count):
+        """The capacity of a data-dependent output count, and the count:
+        ``(capacity, count)``.  An eager run syncs the count and sizes
+        exactly (at least 1); discovery syncs it, pads it to its
+        :func:`size_class` and records that; replay takes the recorded
+        capacity and guards ``count <= capacity`` on the device, where the
+        count stays and still drives the alive masks."""
+        if self.mode == "replay":
+            cap = self._pop("cap")
+            self._oks.append(count <= cap)
+            return cap, count
         n = int(count)
         self.n_syncs += 1
+        if self.mode == "discover":
+            cap = size_class(n)
+            self._rec.append(("cap", cap))
+            return cap, n
         return max(n, 1), n
 
     def _branch_bool(self, flag) -> bool:
-        """Host-sync a branch decision."""
+        """A branch decision: synced (and in discovery recorded), or in
+        replay the recorded one, guarded on the device."""
+        if self.mode == "replay":
+            val = self._pop("bool")
+            self._oks.append(flag == val)
+            return val
+        b = bool(flag)
         self.n_syncs += 1
-        return bool(flag)
+        if self.mode == "discover":
+            self._rec.append(("bool", b))
+        return b
 
     # -- subqueries ----------------------------------------------------------
 
     def _resolve_subqueries(self, e: ex.Expr) -> ex.Expr:
         """Replace each subquery in ``e`` by its result: a scalar
         subquery by a literal, an IN subquery by an IN-list.  The
-        sub-plan runs eagerly and its result crosses to the host once
-        (one sync)."""
+        sub-plan runs eagerly, in discovery too (its own sync points stay
+        out of the size plan), and its result crosses to the host once
+        (one sync); discovery records the result and replay takes it from
+        the record without running the sub-plan.  The canonicalizer keeps
+        every literal inside a subquery in the cache key (NDS402), and a
+        catalog version change rediscovers, so a recorded result holds
+        for every replay of its plan."""
         if isinstance(e, ex.SubqueryExpr):
             hit = self._subq_cache.get(id(e))
             if hit is not None:
                 return hit
+            if self.mode == "replay":
+                out = self._subq_cache[id(e)] = self._pop("subq")
+                return out
             # a memo of its own (jaxexec isolates it the same way): no
             # main-plan subtree may hit a table cached while a subquery
             # ran, or a compiled replay, which skips subqueries, would
             # fall out of step with its discovery
-            outer = self._memo, self._memo_left
+            outer = (self._memo, self._memo_left, self._memo_values,
+                     self.mode)
             self._memo, self._memo_left = {}, _memo_uses(e.plan)
+            self._memo_values, self.mode = None, "eager"
             try:
-                t = to_host(self.execute(e.plan))
+                with _consts_bound(None), _params_bound(None):
+                    t = to_host(self.execute(e.plan))
             finally:
-                self._memo, self._memo_left = outer
+                (self._memo, self._memo_left, self._memo_values,
+                 self.mode) = outer
             self.n_syncs += 1
             col = t.columns[t.column_names[0]]
             if e.kind == "scalar":
@@ -1416,6 +1864,8 @@ class TorchExecutor:
                                     vals, e.negated)
             else:
                 raise Unsupported(f"subquery kind {e.kind}", code="NDS211")
+            if self.mode == "discover":
+                self._rec.append(("subq", out))
             self._subq_cache[id(e)] = out
             return out
         if isinstance(e, ex.BinOp):
@@ -1437,6 +1887,9 @@ class TorchExecutor:
         if isinstance(e, ex.InList):
             return ex.InList(self._resolve_subqueries(e.operand), e.values,
                              e.negated)
+        if isinstance(e, ex.InParam):
+            return ex.InParam(self._resolve_subqueries(e.operand), e.slot,
+                              e.n, e.negated)
         return e
 
     # -- leaves --------------------------------------------------------------
@@ -1492,15 +1945,15 @@ class TorchExecutor:
 
     def compact(self, dt: DTable) -> DTable:
         """Gather alive rows to the front (order-preserving); one sync
-        point for the new capacity (the length of the nonzero list)."""
+        point for the new capacity."""
         return self._compact_n(dt)[0]
 
-    def _compact_n(self, dt: DTable) -> Tuple[DTable, int]:
-        """:meth:`compact` and the number of alive rows it found."""
-        idx = torch.nonzero(dt.alive).squeeze(1)
-        cap, n_alive = self._capacity_for(idx.shape[0])
-        if n_alive < cap:
-            idx = torch.zeros(cap, dtype=idx.dtype, device=self.device)
+    def _compact_n(self, dt: DTable):
+        """:meth:`compact` and the number of alive rows it found (a host
+        int, or in replay a device scalar)."""
+        cap, n_alive = self._capacity_for(
+            torch.sum(dt.alive, dtype=torch.int64))
+        idx = _nonzero_static(dt.alive, cap)
         alive = _iota(cap, self.device) < n_alive
         return DTable(_gather_cols(dt.columns, idx, alive), alive), n_alive
 
@@ -1632,7 +2085,7 @@ class TorchExecutor:
             rewrite cannot walk it."""
             if isinstance(node, ex.AggExpr):
                 return combine[_plan_fp(node)]
-            if isinstance(node, ex.Literal) or (
+            if isinstance(node, (ex.Literal, ex.Param)) or (
                     isinstance(node, ex.Func) and node.name == "grouping"):
                 return node     # grouping() is static per set
             if isinstance(node, ex.BinOp):
@@ -1714,7 +2167,7 @@ class TorchExecutor:
             # dead rows 1)
             gid = torch.where(dt.alive, 0, 1).to(torch.int32)
             ngseg = 2
-            out_alive = torch.tensor([True, False], device=self.device)
+            out_alive = _iota(2, self.device) == 0
             out_cols = {}
         for name, e in p.aggs:
             out_cols[name] = self._eval_agg(
@@ -1738,7 +2191,7 @@ class TorchExecutor:
         rep = order[torch.clamp(first_pos, 0, cap - 1)]
         galive = _segment_sum(alive.to(torch.int32), gid, cap) > 0
         slot_used = torch.zeros(cap, dtype=torch.bool, device=self.device)
-        slot_used[gid] = True
+        slot_used.index_fill_(0, gid.long(), True)
         return gid, rep, slot_used & galive
 
     def _direct_group_ids(self, key_cols, alive):
@@ -1791,16 +2244,16 @@ class TorchExecutor:
         # dead / bounds-violating rows -> trash slot
         bad = torch.sum(alive & ~row_ok)
         if self._branch_bool(bad > 0):
+            n_bad = "some" if self.mode == "replay" else int(bad)
             warnings.warn(
                 f"group-by bounds invariant violated: "
-                f"{int(bad)} valid rows fell outside static "
+                f"{n_bad} valid rows fell outside static "
                 f"key bounds and were dropped (upstream bounds-"
                 f"propagation bug)", stacklevel=2)
         gid = gid.masked_fill(~(alive & row_ok), domain)
         ngseg = domain + 1
         counts = _segment_sum(alive.to(torch.int32), gid, ngseg)
-        out_alive = counts > 0
-        out_alive[domain] = False
+        out_alive = (counts > 0) & (_iota(ngseg, self.device) != domain)
         # reconstruct key values from the slot index (bijective mapping)
         rem = _iota(ngseg, self.device, torch.int64)
         idxs = []
@@ -1832,7 +2285,8 @@ class TorchExecutor:
                                    dtype=torch.int32, device=self.device),
                         torch.ones(ngseg, dtype=torch.bool,
                                    device=self.device), INT32)
-        if isinstance(e, (ex.BinOp, ex.Cast, ex.Func, ex.Case, ex.Literal)):
+        if isinstance(e, (ex.BinOp, ex.Cast, ex.Func, ex.Case, ex.Literal,
+                          ex.Param)):
             # expression over aggregates: evaluate leaves then combine on
             # the group-capacity table
             sub_cols: Dict[str, DCol] = {}
@@ -2540,11 +2994,14 @@ class TorchExecutor:
         """Left-row index feeding each expansion output position: scatter
         each emitting row's id at its start position, cummax fills the
         run.  Starts of emitting rows are strictly increasing, so
-        destinations are unique."""
+        destinations are unique.  A start past ``out_cap`` (a replay whose
+        binding outgrew the recorded capacity, which its guard reports)
+        goes to the trash slot: every index stays in range."""
         cap = int(counts.shape[0])
         dev = counts.device
-        emit = counts > 0
-        sdest = torch.where(emit, starts.to(torch.int64), out_cap)
+        starts = starts.to(torch.int64)
+        emit = (counts > 0) & (starts < out_cap)
+        sdest = torch.where(emit, starts, out_cap)
         rid = torch.where(emit, _iota(cap, dev) + 1, 0)
         tmp = torch.zeros(out_cap + 1, dtype=torch.int32, device=dev)
         tmp.scatter_reduce_(0, sdest, rid, "amax")
@@ -2744,16 +3201,16 @@ class TorchExecutor:
                             lt.capacity)
         unmatched_mask = lt.alive & (hits == 0)
         inner_c, n_matched = self._compact_n(inner)
-        # the unmatched left rows, in order (nonzero syncs its length)
-        um_idx = torch.nonzero(unmatched_mask).squeeze(1)
-        out_cap, n_out = self._capacity_for(n_matched + um_idx.shape[0])
+        out_cap, n_out = self._capacity_for(
+            n_matched + torch.sum(unmatched_mask, dtype=torch.int64))
         # out[pos] = matched[pos] for pos < n_matched,
         #            unmatched-left[pos - n_matched] after (null right side)
         pos = _iota(out_cap, self.device, torch.int64)
         is_m = pos < n_matched
         mi = torch.clamp(pos, 0, inner_c.capacity - 1)
-        um_rows = torch.zeros(out_cap, dtype=torch.int64, device=self.device)
-        um_rows[n_matched:n_out] = um_idx
+        # the unmatched left rows, in order
+        um_idx = _nonzero_static(unmatched_mask, out_cap)
+        um_rows = um_idx[torch.clamp(pos - n_matched, 0, out_cap - 1)]
         out_alive = pos < n_out
         cols = _select_cols(
             {n: inner_c.column(n) for n in lt.column_names},
@@ -2763,3 +3220,633 @@ class TorchExecutor:
             {n: inner_c.column(n) for n in rt.column_names},
             mi, is_m & out_alive))
         return DTable(cols, out_alive)
+
+
+# ---------------------------------------------------------------------------
+# compiling executor: discover once, replay (on CUDA, a captured graph)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _CompiledPlan:
+    """One query key's compiled plan (jaxexec._CompiledPlan): the size
+    plan discovery recorded, what replay needs to rebuild its inputs, and
+    on CUDA the captured graph with its static buffers."""
+
+    key: str
+    plan: lp.Plan
+    record: list
+    versions: tuple
+    # which memo asks share a result (_memo_signature) under the
+    # discovered binding: with the key, what the entry is found by
+    memo_sig: tuple = ()
+    # per-table column subset actually scanned (None = all columns)
+    table_cols: Dict[str, Optional[List[str]]] = None
+    out_meta: List[tuple] = None         # (name, ctype, dictionary, bounds)
+    # parameter materializations recorded during discovery (pdict hit
+    # tables, pvec IN vectors, in traversal order): rebuilt for any later
+    # binding of the same canonical key
+    param_spec: list = None
+    # host-built device tables, in the order the plan asks for them:
+    # [(host array, device tensor)] (_ConstRecord)
+    consts: list = None
+    # representative SQL text for persisted records: canonical cache
+    # keys are not re-plannable, so save/load round-trips through SQL
+    source_sql: Optional[str] = None
+    # loaded from disk and not yet replayed: a drifted record is
+    # rediscovered at its first run
+    preloaded: bool = False
+    # discovery's peak device bytes above what was allocated before it
+    # (predicts the captured graph's pool) and its memo hits
+    peak_bytes: int = 0
+    memo_hits: int = 0
+    # host seconds of the discovery run and of the last capture
+    discover_s: float = 0.0
+    capture_s: float = 0.0
+    # the captured graph (CUDA), its static parameter buffers, its
+    # outputs (out, alive, ok), their pinned host copies, the segment
+    # sum kernel's aux words, the kernel calls it holds and its pool bytes
+    graph: object = None
+    bufs: Optional[dict] = None
+    outputs: Optional[tuple] = None
+    host_out: Optional[list] = None
+    aux: Optional[torch.Tensor] = None
+    kernel_calls: int = 0
+    pool_bytes: int = 0
+
+    @property
+    def slot(self) -> tuple:
+        """The compile cache's key of this entry."""
+        return self.key, self.memo_sig
+
+    def drop_graph(self) -> None:
+        """Release the graph and everything it holds; the size plan
+        stays, so a later run recaptures with no discovery."""
+        self.graph = self.bufs = self.outputs = self.host_out = None
+        self.aux = None
+        self.pool_bytes = 0
+
+
+def _scan_columns(p: lp.Plan) -> Dict[str, Optional[List[str]]]:
+    """Union of scanned columns per table (None = full table)."""
+    out: Dict[str, Optional[List[str]]] = {}
+    for node in p.walk():
+        if isinstance(node, lp.Scan):
+            if node.columns is None:
+                out[node.table] = None
+            elif node.table not in out:
+                out[node.table] = list(node.columns)
+            elif out[node.table] is not None:
+                for c in node.columns:
+                    if c not in out[node.table]:
+                        out[node.table].append(c)
+    return out
+
+
+def _host_rows(t: Table) -> list:
+    """A host result's rows as tuples (strings decoded, NULLs None)."""
+    cols = []
+    for c in t.columns.values():
+        valid = c.validity()
+        data = c.data
+        if c.dictionary is not None:
+            data = np.full(len(c.data), None, dtype=object)
+            data[valid] = c.dictionary[c.data[valid]]
+        cols.append([v if ok else None
+                     for v, ok in zip(data.tolist(), valid.tolist())])
+    return list(zip(*cols))
+
+
+def _rows_equal(a: list, b: list, rel: float = 1e-5) -> bool:
+    """Exact for ints, decimals, dates and strings, ``rel`` relative for
+    floats (the validator's epsilon), row by row."""
+    if len(a) != len(b):
+        return False
+    for ra, rb in zip(a, b):
+        for x, y in zip(ra, rb):
+            if x is None or y is None:
+                if x is not y:
+                    return False
+            elif isinstance(x, float) or isinstance(y, float):
+                if not (x == y or abs(x - y) <= rel * max(abs(x), abs(y))
+                        or (x != x and y != y)):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+def results_differ(want: Table, got: Table) -> Optional[str]:
+    """None when ``got`` holds ``want``'s rows (floats within 1e-5
+    relative), in order or, where float sums added in another order
+    reordered ties, as multisets; else what differs."""
+    if want.column_names != got.column_names:
+        return f"columns {got.column_names} != {want.column_names}"
+    a, b = _host_rows(want), _host_rows(got)
+    if _rows_equal(a, b):
+        return None
+
+    def key(r):
+        return tuple((0,) if v is None else (1, v) for v in r)
+    if _rows_equal(sorted(a, key=key), sorted(b, key=key)):
+        return None
+    if len(a) != len(b):
+        return f"{len(b)} rows != {len(a)}"
+    i = next(j for j, (x, y) in enumerate(zip(a, b))
+             if not _rows_equal([x], [y]))
+    return f"row {i}: {b[i]!r} != {a[i]!r}"
+
+
+class CompilingExecutor(TorchExecutor):
+    """TorchExecutor + a whole-query compile cache (jaxexec
+    .CompilingExecutor) keyed by the canonical key of the plan (or its
+    normalized text).
+
+    The first run of a key discovers its size plan eagerly, at padded
+    capacities.  On CUDA the plan is then captured as one
+    ``torch.cuda.CUDAGraph`` (the analog of jaxexec's jitted program),
+    replayed once and held against discovery (``warm_replay``); every
+    later run, and every rendering with the same canonical key, writes its
+    parameters into the graph's static buffers, replays it with no host
+    sync, and reads back the guards and the result once.  On the CPU the
+    same replay runs the plan's operators at the recorded capacities
+    without a capture, which is what the tests hold against the JAX
+    engine.  A failed guard (a binding that outgrows a recorded capacity
+    or flips a branch) or a catalog version change rediscovers.  A capture
+    or replay error raises: nothing falls back to an eager run.
+
+    An entry is found by the key and the binding's memo signature
+    (:func:`_memo_signature`): a replay runs the memo sharing its
+    discovery recorded, so a binding whose parameters are equal in other
+    places (two copies of a CTE bound apart) has an entry of its own,
+    discovered at its first run, and two such bindings never evict each
+    other.
+
+    Captured graphs keep their memory pools.  Their bytes are held under
+    ``graph_budget``, half the free device memory at the first capture:
+    before a capture the least recently used graphs are
+    evicted, keeping their size plans, so a later run recaptures without
+    rediscovery.  An eager or discovery run that runs out of device
+    memory while graphs are held evicts them all and runs once more.
+
+    Counters: ``n_discoveries``, ``n_captures`` (jaxexec's
+    ``n_jit_builds``), ``n_evictions``, ``n_guard_failures``,
+    ``n_memo_sig_misses`` (discoveries of a key compiled under another
+    memo signature), ``n_oom_retries`` (eager or discovery runs rerun
+    after evicting every graph) and ``n_replays``; ``n_syncs`` is 1 for a
+    replay (its one read-back).
+    """
+
+    # bump when the pickle layout of save_compile_records changes
+    _REC_FORMAT = 1
+
+    def __init__(self, catalog, device, groupby: str = GROUPBY_DEFAULT):
+        super().__init__(catalog, device, groupby=groupby)
+        from ndstpu_torch.engine.latch import KeyedLatch
+        self.capture = self.device.type == "cuda"
+        # the first replay of a capture is checked against its discovery;
+        # on the CPU a replay is the next run's own path, so it waits for
+        # that run
+        self.warm_replay = self.capture
+        self.graph_budget: Optional[int] = None     # set at first capture
+        # (key, memo signature) -> compiled plan
+        self._compiled: Dict[tuple, _CompiledPlan] = {}
+        # entries that hold a graph, least recently used first
+        self._graphs: "collections.OrderedDict[tuple, _CompiledPlan]" = \
+            collections.OrderedDict()
+        # execution is serialized (the executor keeps per-query state);
+        # the key latch makes the first arrival for a key discover while
+        # later arrivals wait, then replay
+        self._exec_lock = threading.RLock()
+        self._key_latch = KeyedLatch()
+        self.n_discoveries = 0
+        self.n_captures = 0
+        self.n_evictions = 0
+        self.n_guard_failures = 0
+        self.n_memo_sig_misses = 0
+        self.n_oom_retries = 0
+        self.n_replays = 0
+
+    # -- entry points ----------------------------------------------------------
+
+    def execute_to_host(self, p: lp.Plan) -> Table:
+        """Run ``p`` eagerly, as :class:`TorchExecutor` does (graphs are
+        evicted if it runs out of device memory while they are held)."""
+        with self._exec_lock:
+            return self._with_memory(
+                lambda: TorchExecutor.execute_to_host(self, p))
+
+    def execute_cached(self, p: lp.Plan, key: str,
+                       params: Optional[ex.ParamBinding] = None,
+                       sql: Optional[str] = None) -> Table:
+        """Run ``p`` under ``key``: discovery at the first run of the key
+        and the binding's memo signature, replay after.  Under canonical
+        keying ``p`` is the parameterized plan and ``params`` this
+        rendering's binding."""
+        with self._key_latch.holding(key):
+            with self._exec_lock:
+                return self._execute_cached_locked(p, key, params, sql)
+
+    def compiled(self, p: lp.Plan, key: str,
+                 params: Optional[ex.ParamBinding] = None
+                 ) -> Optional[_CompiledPlan]:
+        """The compiled plan a run of ``p`` under ``key`` and ``params``
+        finds (or None)."""
+        values = params.values if params is not None else None
+        return self._compiled.get((key, _memo_signature(p, values)))
+
+    def _execute_cached_locked(self, p: lp.Plan, key: str,
+                               params: Optional[ex.ParamBinding],
+                               sql: Optional[str]) -> Table:
+        versions = tuple(sorted(self.catalog.versions.items()))
+        values = params.values if params is not None else None
+        slot = (key, _memo_signature(p, values))
+        cp = self._compiled.get(slot)
+        if cp is not None and cp.versions != versions:
+            self._drop(slot)
+            cp = None
+        if cp is None:
+            if any(k == key for k, _sig in self._compiled):
+                self.n_memo_sig_misses += 1
+            return self._discover_query(p, slot, versions, params, sql)
+        try:
+            result = self._replay_query(cp, params)
+        except _Drift:
+            if not cp.preloaded:
+                raise
+            result = None       # a stale record from disk
+        if result is None:
+            return self._forget_and_rediscover(p, slot, versions, params,
+                                               sql)
+        cp.preloaded = False
+        return result
+
+    def forget(self, key: str) -> None:
+        """Drop ``key``'s compiled plans and their graphs: the key's next
+        run discovers again."""
+        for slot in [s for s in self._compiled if s[0] == key]:
+            self._drop(slot)
+
+    def _drop(self, slot: tuple) -> None:
+        cp = self._compiled.pop(slot, None)
+        if cp is not None and self._graphs.pop(slot, None) is not None:
+            cp.drop_graph()
+
+    def _forget_and_rediscover(self, p, slot, versions, params, sql
+                               ) -> Table:
+        self.n_guard_failures += 1
+        warnings.warn(
+            f"compiled plan invalidated (a replay guard failed or a "
+            f"preloaded record drifted); rediscovering "
+            f"{slot[0].split('|', 1)[-1][:80]!r}", stacklevel=3)
+        self._drop(slot)
+        return self._discover_query(p, slot, versions, params, sql)
+
+    # -- discovery ---------------------------------------------------------------
+
+    def _discover_query(self, p: lp.Plan, slot: tuple, versions,
+                        params: Optional[ex.ParamBinding],
+                        sql: Optional[str]) -> Table:
+        t0 = time.perf_counter()
+        cp, host = self._with_memory(
+            lambda: self._discover(p, slot, versions, params))
+        cp.discover_s = time.perf_counter() - t0
+        cp.source_sql = sql
+        self._compiled[slot] = cp
+        syncs = self.n_syncs
+        if self.warm_replay:
+            got = self._replay_query(cp, params)
+            if got is None:
+                raise RuntimeError(
+                    f"the first replay of {slot[0]!r} failed its guards "
+                    f"on the binding it was discovered with")
+            diff = results_differ(host, got)
+            if diff is not None:
+                raise RuntimeError(f"the first replay of {slot[0]!r} "
+                                   f"disagrees with its discovery: {diff}")
+            syncs += self.n_syncs
+        self.n_syncs = syncs
+        return host
+
+    def _discover(self, p: lp.Plan, slot: tuple, versions,
+                  params: Optional[ex.ParamBinding]):
+        """One eager run at padded capacities that records the size plan,
+        the parameter tables and the device constants: (compiled plan,
+        host result)."""
+        self.n_discoveries += 1
+        rec: list = []
+        consts: list = []
+        pspec: list = []
+        values = params.values if params is not None else None
+        pctx = _ParamCtx(values, "concrete", spec=pspec,
+                         record=True) if params is not None else None
+        base = 0
+        if self.capture:
+            torch.cuda.reset_peak_memory_stats(self.device)
+            base = torch.cuda.memory_allocated(self.device)
+        self._begin(p, "discover", values)
+        self._rec = rec
+        try:
+            with _params_bound(pctx), \
+                    _consts_bound(_ConstRecord(consts, replay=False)):
+                # compacted to the result's own class: replay reads back
+                # every output column at this capacity
+                dt = self.compact(self.execute(p))
+            host = to_host(dt)
+        finally:
+            self._end()
+            self._rec = None
+        cp = _CompiledPlan(slot[0], p, rec, versions, memo_sig=slot[1],
+                           table_cols=_scan_columns(p),
+                           out_meta=[(n, c.ctype, c.dictionary, c.bounds)
+                                     for n, c in dt.columns.items()],
+                           param_spec=pspec, consts=consts,
+                           memo_hits=self.n_memo_hits)
+        if self.capture:
+            cp.peak_bytes = torch.cuda.max_memory_allocated(self.device) \
+                - base
+        return cp, host
+
+    def _with_memory(self, run):
+        """``run()``; on CUDA, once more after evicting every graph if it
+        ran out of device memory while graphs were held
+        (``n_oom_retries``)."""
+        try:
+            return run()
+        except torch.OutOfMemoryError:
+            if not (self.capture and self._graphs):
+                raise
+        self.n_oom_retries += 1
+        self._evict(len(self._graphs))
+        return run()
+
+    # -- replay ------------------------------------------------------------------
+
+    def _replay_run(self, cp: _CompiledPlan, bufs: dict, values):
+        """The plan's operators in replay mode (on CUDA, what a capture
+        records) under a binding's ``values``, which only the memo reads:
+        ``(out, alive, ok)``, the output columns' ``(data, valid)`` by
+        name, the output alive mask and the conjunction of every guard,
+        all on the device."""
+        pctx = _ParamCtx(None, "replay", spec=cp.param_spec or [],
+                         bufs=bufs)
+        crec = _ConstRecord(cp.consts, replay=True)
+        self._begin(cp.plan, "replay", values)
+        self._rec, self._pos, self._oks = cp.record, 0, []
+        try:
+            with _params_bound(pctx), _consts_bound(crec):
+                dt = self.compact(self.execute(cp.plan))
+            if (self._pos, pctx.pos, crec.pos) != (
+                    len(cp.record), len(pctx.spec), len(cp.consts)):
+                raise _Drift("size-plan drift (unconsumed records)")
+            # output-type guard: a preloaded record whose engine typing
+            # changed without its plan tree changing
+            want = [(n, ct) for n, ct, _d, _b in cp.out_meta]
+            if [(n, c.ctype) for n, c in dt.columns.items()] != want:
+                raise _Drift("size-plan drift (output columns)")
+            ok = torch.ones((), dtype=torch.bool, device=self.device)
+            if self._oks:
+                ok = torch.stack([o.reshape(()) for o in self._oks]).all()
+            out = {n: (c.data, c.valid) for n, c in dt.columns.items()}
+            return out, dt.alive, ok
+        finally:
+            self._end()
+            self._rec = self._oks = None
+
+    def _replay_query(self, cp: _CompiledPlan,
+                      binding: Optional[ex.ParamBinding]) -> Optional[Table]:
+        """Replay ``cp`` under ``binding`` (one of its memo signature): on
+        CUDA its graph (captured now if it has none), on the CPU its
+        operators.  One read-back of the guards and the result; None when
+        a guard failed."""
+        values = binding.values if binding is not None else None
+        args = _param_args_np(cp.param_spec, binding)
+        if not self.capture:
+            out, alive, ok = self._replay_run(
+                cp, {k: torch.as_tensor(v) for k, v in args.items()},
+                values)
+            host = [ok, alive] + [t for n in out for t in out[n]]
+        else:
+            if cp.graph is None:
+                self._capture(cp, args, values)
+            elif not self._write_params(cp, args):
+                return None
+            self._graphs.move_to_end(cp.slot)
+            cp.graph.replay()
+            out, alive, ok = cp.outputs
+            host = cp.host_out
+            for h, t in zip(host, [ok, alive] +
+                            [t for n in out for t in out[n]]):
+                h.copy_(t, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        self.n_replays += 1
+        self.n_syncs = 1
+        self.n_memo_hits = cp.memo_hits
+        if not bool(host[0]):
+            return None
+        alive_np = host[1].numpy()
+        cols = {}
+        for i, (name, ctype, dictionary, _b) in enumerate(cp.out_meta):
+            data = host[2 + 2 * i].numpy()[alive_np]
+            valid = host[3 + 2 * i].numpy()[alive_np]
+            cols[name] = Column(data, ctype, None if valid.all() else valid,
+                                dictionary)
+        return Table(cols)
+
+    def _write_params(self, cp: _CompiledPlan, args: dict) -> bool:
+        """Copy one binding's host arguments into the graph's buffers;
+        False when one has another shape (an IN-list that coerced to
+        another length), which the recorded graph cannot take."""
+        for k, v in args.items():
+            if tuple(cp.bufs[k].shape) != v.shape:
+                return False
+        for k, v in args.items():
+            cp.bufs[k].copy_(torch.as_tensor(v))
+        return True
+
+    def _capture(self, cp: _CompiledPlan, args: dict, values) -> None:
+        """Capture ``cp``'s replay as a CUDA graph (jaxexec._build_jit):
+        static parameter buffers, the kernel's aux words and pinned
+        read-back buffers are made outside the capture; the least
+        recently used graphs are evicted first to make room for this
+        one's pool (discovery's temporaries predict it), and all of them
+        if the capture still runs out of device memory, before its one
+        retry."""
+        segsum.prepare(self.device)
+        self._make_room(cp.peak_bytes)
+        try:
+            self._capture_once(cp, args, values)
+            return
+        except torch.OutOfMemoryError:
+            cp.drop_graph()
+            if not self._graphs:
+                raise
+        self._evict(len(self._graphs))
+        self._capture_once(cp, args, values)
+
+    def _capture_once(self, cp: _CompiledPlan, args: dict, values) -> None:
+        cp.bufs = {k: torch.as_tensor(v).to(self.device)
+                   for k, v in args.items()}
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        before = torch.cuda.memory_reserved(self.device)
+        # The capture carves its tensors out of one arena: a block a fifth
+        # larger than discovery's temporaries, allocated into the graph's
+        # pool on its stream and freed at once, so that freed tensors
+        # merge back into it.  A capture cannot return memory to the
+        # device, and a segment for each new size fragments the pool:
+        # q93 at SF 100 on an H100 held 41.6 GB of segments for 18.7 GB
+        # of live tensors when it ran out of memory.
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(self.device)
+        arena = min(cp.peak_bytes * 6 // 5,
+                    torch.cuda.mem_get_info(self.device)[0] - (2 << 30))
+        reserve = torch.cuda.CUDAGraph()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # an empty graph
+            with torch.cuda.graph(reserve, pool=pool, stream=stream):
+                if arena > 0:
+                    torch.empty(arena, dtype=torch.uint8,
+                                device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        with segsum.capturing(self.device) as calls:
+            cp.aux = calls.aux
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                cp.outputs = self._replay_run(cp, cp.bufs, values)
+        del reserve
+        cp.capture_s = time.perf_counter() - t0
+        cp.graph = graph
+        cp.kernel_calls = calls.n
+        cp.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+        out, alive, ok = cp.outputs
+        cp.host_out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                       for t in [ok, alive] +
+                       [t for n in out for t in out[n]]]
+        self.n_captures += 1
+        self._graphs[cp.slot] = cp
+
+    # -- graph memory ------------------------------------------------------------
+
+    def pool_bytes(self) -> int:
+        """Device bytes the held graphs' pools take."""
+        return sum(cp.pool_bytes for cp in self._graphs.values())
+
+    def _make_room(self, need: int) -> None:
+        """Evict least recently used graphs until the held pools plus
+        ``need`` fit the budget and the free device memory."""
+        torch.cuda.empty_cache()
+        if self.graph_budget is None:
+            self.graph_budget = torch.cuda.mem_get_info(self.device)[0] // 2
+        while self._graphs:
+            free = torch.cuda.mem_get_info(self.device)[0]
+            if self.pool_bytes() + need <= self.graph_budget and \
+                    free >= need + need // 4:
+                return
+            self._evict(1)
+
+    def evict_all(self) -> None:
+        """Evict every held graph (their size plans stay)."""
+        with self._exec_lock:
+            self._evict(len(self._graphs))
+
+    def _evict(self, n: int) -> None:
+        """Drop the ``n`` least recently used graphs (their size plans
+        stay) and return their pools to the device."""
+        for _ in range(n):
+            _slot, cp = self._graphs.popitem(last=False)
+            cp.drop_graph()
+            self.n_evictions += 1
+        # a failed run's tensors may sit in reference cycles with its
+        # traceback's frames
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- persisted size-plan records ---------------------------------------------
+
+    def _table_fingerprint(self, name: str) -> tuple:
+        """Cheap content identity for a catalog table: row count + a
+        prefix checksum over integer-backed columns.  Guards persisted
+        size-plan records against a *different dataset* — per-process
+        version counters cannot (they restart at 1)."""
+        t = self.catalog.get(name)
+        chk = 0
+        for cname in t.column_names[:3]:
+            data = t.column(cname).data[:4096]
+            if isinstance(data, torch.Tensor):
+                data = data.cpu().numpy()
+            if data.dtype.kind in "iu":
+                chk ^= int(np.asarray(data, dtype=np.int64).sum()) & \
+                    (2 ** 61 - 1)
+        return (name, t.num_rows, chk)
+
+    def save_compile_records(self, path: str) -> int:
+        """Persist discovery's size-plan records (never a graph) so that
+        a fresh process skips discovery: each record keyed by its
+        representative SQL, merged with what ``path`` already holds and
+        published atomically.  Returns the record count."""
+        with self._exec_lock:
+            data = {"\x00fmt": self._REC_FORMAT}
+            for cp in self._compiled.values():
+                sql = cp.source_sql or cp.key
+                try:
+                    fps = tuple(self._table_fingerprint(t)
+                                for t in sorted(cp.table_cols or ()))
+                except KeyError:
+                    continue  # references a since-dropped table
+                data[sql] = (cp.record, fps, cp.table_cols, cp.out_meta,
+                             cp.param_spec, [h for h, _t in cp.consts],
+                             cp.memo_sig)
+            try:
+                with open(path, "rb") as f:
+                    prev = pickle.load(f)
+                if isinstance(prev, dict) and \
+                        prev.get("\x00fmt") == self._REC_FORMAT:
+                    for k, v in prev.items():
+                        data.setdefault(k, v)
+            except (OSError, pickle.UnpicklingError, EOFError):
+                pass        # absent or unreadable earlier file
+            tmp = f"{path}.tmp.{uuid.uuid4().hex}"
+            with open(tmp, "wb") as f:
+                pickle.dump(data, f)
+            os.replace(tmp, path)
+            return len(data) - 1
+
+    def load_compile_records(self, path: str, plan_for_key) -> int:
+        """Preload records saved by :meth:`save_compile_records`.
+        ``plan_for_key(sql)`` returns the plan to run for the SQL text and
+        its cache key, ``(plan, key)``, or None to skip it.  Records whose
+        table fingerprints no longer match the catalog are dropped; a
+        preloaded record is captured at its first run with no discovery,
+        and rediscovered if it drifted.  Returns the count loaded."""
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+        if not isinstance(data, dict) or \
+                data.get("\x00fmt") != self._REC_FORMAT:
+            return 0
+        with self._exec_lock:
+            versions = tuple(sorted(self.catalog.versions.items()))
+            n = 0
+            for sql, ent in data.items():
+                if sql.startswith("\x00"):
+                    continue
+                (record, fps, table_cols, out_meta, pspec, hosts,
+                 memo_sig) = ent
+                try:
+                    if any(self._table_fingerprint(fp[0]) != fp
+                           for fp in fps):
+                        continue
+                except KeyError:
+                    continue
+                res = plan_for_key(sql)
+                if res is None:
+                    continue
+                plan, key = res
+                self._drop((key, memo_sig))
+                self._compiled[key, memo_sig] = _CompiledPlan(
+                    key, plan, record, versions, table_cols=table_cols,
+                    out_meta=out_meta, param_spec=pspec, memo_sig=memo_sig,
+                    consts=[(h, torch.as_tensor(h).to(self.device))
+                            for h in hosts],
+                    source_sql=sql, preloaded=True)
+                n += 1
+            return n

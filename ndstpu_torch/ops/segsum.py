@@ -18,6 +18,14 @@ kernel launch through a ctypes binding made once; its launch comes from
 :func:`_plan_decimal` or :func:`_plan_f32` (pure functions of the row
 count, the segment count and the card's SMs), which the CPU tests check.
 
+``segment_sum_decimal`` may be captured into a CUDA graph (the compiled
+query replay, ``torchexec.CompilingExecutor``): the capture calls
+:func:`prepare` first and runs under :func:`capturing`, whose aux words
+are made outside the capture and must live as long as the graph; it
+counts the calls the capture records.  A replay launches them with no
+Python call, so :func:`counting_replays` counts them from the profiler's
+device events by kernel name, into ``REPLAY_LAUNCHES``.
+
 ``segment_sum_decimal``'s contract (bit-exact with the TPU function):
 
 * masked-out rows and rows whose gid is outside ``[0, num_segments)`` add
@@ -37,8 +45,10 @@ it agrees with the plain version within a tolerance, not bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -47,8 +57,13 @@ _BIAS = 1 << 41
 _POISON = -(1 << 62)
 
 # launches of each CUDA kernel since the last reset (the CPU path never
-# counts): a run shows through these that it went through the kernel
+# counts): a run shows through these that it went through the kernel.
+# LAUNCHES counts the wrapper's own launches; REPLAY_LAUNCHES the
+# launches of segsum_decimal that graph replays made inside
+# counting_replays(), counted by the profiler (a capture launches nothing
+# and counts in neither)
 LAUNCHES = 0            # segsum_decimal
+REPLAY_LAUNCHES = 0     # segsum_decimal, by graph replays (profiled)
 LAUNCHES_F32 = 0        # segsum_f32
 
 
@@ -215,11 +230,10 @@ def _sms(dev: torch.device) -> int:
     return sms
 
 
-def _call(kernel: str, device: int, stream: int, *args, plan: Plan
-          ) -> None:
-    """Call ``csrc/<kernel>.cu``'s ``<kernel>_launch(*args, plan, stream)``
-    on the current device, index ``device`` (built, bound and prepared on
-    first use there); raises on a CUDA error."""
+def _launcher(kernel: str, device: int):
+    """``csrc/<kernel>.cu``'s bound launcher on the current device, index
+    ``device``: built, bound and prepared (its ``cudaFuncSetAttribute``
+    calls) on first use there."""
     fn = _FNS.get((kernel, device))
     if fn is None:
         from ndstpu_torch.ops import build
@@ -234,6 +248,72 @@ def _call(kernel: str, device: int, stream: int, *args, plan: Plan
         fn.argtypes = _ARGTYPES[kernel]
         fn.restype = ctypes.c_int
         _FNS[kernel, device] = fn
+    return fn
+
+
+def prepare(device) -> None:
+    """Build, bind and prepare ``segsum_decimal`` on ``device`` now, so
+    that a capture makes no attribute call."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        _launcher("segsum_decimal", dev.index or 0)
+
+
+class _Capture:
+    """A capture in progress: the decimal kernel's aux words for its
+    calls (int64 [2]: the calls of a graph run one after another on its
+    stream, and each leaves them zero) and the calls it has recorded."""
+
+    def __init__(self, device):
+        self.aux = torch.zeros(2, dtype=torch.int64, device=device)
+        self.n = 0
+
+
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capturing(device):
+    """The extent of one graph capture on ``device``, entered before the
+    capture begins: ``segment_sum_decimal`` calls inside it use the
+    yielded object's ``aux`` and are counted on its ``n`` instead of in
+    ``LAUNCHES``."""
+    prev = getattr(_CAPTURE, "cap", None)
+    cap = _CAPTURE.cap = _Capture(device)
+    try:
+        yield cap
+    finally:
+        _CAPTURE.cap = prev
+
+
+@contextlib.contextmanager
+def counting_replays():
+    """Count the ``segsum_decimal`` launches that graph replays make in
+    the block: ``torch.profiler`` records the card's kernels (CUDA
+    activity only), and the device events whose kernel name holds
+    ``segsum_decimal``, less the wrapper's own launches in the block, are
+    added to ``REPLAY_LAUNCHES``.  Yields a dict whose ``"launches"`` is
+    that count once the block ends."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    global REPLAY_LAUNCHES
+    out = {"launches": 0}
+    before = LAUNCHES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield out
+        torch.cuda.synchronize()
+    seen = sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "segsum_decimal" in e.name)
+    out["launches"] = seen - (LAUNCHES - before)
+    REPLAY_LAUNCHES += out["launches"]
+
+
+def _call(kernel: str, device: int, stream: int, *args, plan: Plan
+          ) -> None:
+    """Call ``csrc/<kernel>.cu``'s ``<kernel>_launch(*args, plan, stream)``
+    on the current device, index ``device``; raises on a CUDA error."""
+    fn = _launcher(kernel, device)
     cplan = _c_plan(plan)
     err = fn(*args, ctypes.addressof(cplan), stream)
     if err != 0:
@@ -243,16 +323,25 @@ def _call(kernel: str, device: int, stream: int, *args, plan: Plan
 def _decimal(vals, gid, mask, num_segments: int, plan: Plan
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One call of the decimal kernel with ``plan``; the sums and counts
-    are the rows of one zeroed int64 buffer."""
+    are the rows of one zeroed int64 buffer.  Inside a capture it takes
+    the capture's aux words (allocating them there would put them in the
+    graph's pool, cached past the graph's life)."""
     dev = vals.device
     if dev.index != torch._C._cuda_getDevice():
         with torch.cuda.device(dev):
             return _decimal(vals, gid, mask, num_segments, plan)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    aux = _AUX.get((dev.index, stream))
-    if aux is None:
-        aux = _AUX[dev.index, stream] = torch.zeros(2, dtype=torch.int64,
-                                                    device=dev)
+    if torch.cuda.is_current_stream_capturing():
+        cap = getattr(_CAPTURE, "cap", None)
+        if cap is None:
+            raise RuntimeError("segment_sum_decimal captured outside "
+                               "segsum.capturing(): no aux words")
+        aux = cap.aux
+    else:
+        aux = _AUX.get((dev.index, stream))
+        if aux is None:
+            aux = _AUX[dev.index, stream] = torch.zeros(
+                2, dtype=torch.int64, device=dev)
     buf = torch.empty((2, num_segments), dtype=torch.int64, device=dev)
     _call("segsum_decimal", dev.index, stream, vals.data_ptr(), gid.data_ptr(),
           mask.data_ptr(), vals.shape[0], num_segments, buf.data_ptr(),
@@ -273,7 +362,11 @@ def segment_sum_decimal(vals: torch.Tensor, gid: torch.Tensor,
     plan = _plan_decimal(vals.shape[0], num_segments, _sms(vals.device))
     out = _decimal(vals, gid, mask, num_segments, plan)
     if plan.grid:
-        LAUNCHES += 1
+        cap = getattr(_CAPTURE, "cap", None)
+        if cap is not None and torch.cuda.is_current_stream_capturing():
+            cap.n += 1
+        else:
+            LAUNCHES += 1
     return out
 
 

@@ -1,13 +1,17 @@
 """Where the time of the port's queries goes, on one CUDA card.
 
-    python -m ndstpu_torch.profile [--corpus] [--scale SF] [--seed N]
-                                   [--out DIR]
+    python -m ndstpu_torch.profile [--corpus] [--eager] [--scale SF]
+                                   [--seed N] [--out DIR]
 
 Generates the warehouse on the card (as ``chip_smoke.py`` does): the
 store-channel columns at SF 100 for the seventeen queries of the earlier
 card paths, or with ``--corpus`` the whole warehouse at SF 20 for every
-part of the power corpus.  Runs each query once to warm up, then once
-under ``torch.profiler`` (CPU and CUDA activities).  Prints one JSON line
+part of the power corpus.  Runs each query once through the compiled
+path to warm up (discovery, capture, first replay), then once more under
+``torch.profiler`` (CPU and CUDA activities): a replay of its captured
+graph, whose kernels no CPU-side operator launched, so its top operators
+are empty; with ``--eager`` the profiled run is an eager run of the plan
+instead, which attributes device time to operators.  Prints one JSON line
 per query: wall ms, summed device ms, the device's idle share of the wall
 time, host syncs, memo hits, and the top operators and kernels by device
 time; writes one Chrome trace per query into ``--out``.
@@ -62,6 +66,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus", action="store_true",
                     help="every part of the power corpus, whole warehouse")
+    ap.add_argument("--eager", action="store_true",
+                    help="profile an eager run, not a replay")
     ap.add_argument("--scale", type=float, default=None,
                     help="SF (default 100, or 20 with --corpus)")
     ap.add_argument("--seed", type=int, default=1)
@@ -91,16 +97,22 @@ def main(argv=None) -> int:
     for q, sql in queries:
         sess.sql(sql)
         torch.cuda.synchronize()
+        if args.eager:
+            plan = sess.plan(sql)[0]
+            run = lambda: sess.executor.execute_to_host(plan)  # noqa: E731
+        else:
+            run = lambda: sess.sql(sql)  # noqa: E731
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            sess.sql(sql)
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         prof.export_chrome_trace(str(out / f"{q}.json"))
         b = breakdown(prof, args.top)
         print(json.dumps({
             "query": q, "scale": scale, "card": card,
+            "run": "eager" if args.eager else "replay",
             "wall_ms": wall_ms, "device_ms": b["device_ms"],
             "device_idle_share": max(0.0, 1 - b["device_ms"] / wall_ms),
             "host_syncs": sess.executor.n_syncs,

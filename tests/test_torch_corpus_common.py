@@ -7,8 +7,10 @@ The warehouse is ``ndstpu_torch.datagen.generate(SCALE, seed=1)`` on the
 CPU, all 25 tables; the JAX engine reads the same numpy columns through a
 ``loader.Catalog``.  Each of the five numbered files takes a fifth of the
 103 parts (``render_power_corpus()``, rngseed 07291122510, stream 0) and
-parametrises over it.  A part passes when the port runs it with no
-exception, its result agrees with ``Session(backend="tpu")`` under
+parametrises over it.  A part passes when the port runs it twice with no
+exception (discovery, then a replay of its compiled plan at the padded
+capacities discovery recorded), each result agrees with
+``Session(backend="tpu")`` under
 ``tests/test_jaxexec.py::assert_tables_match`` (in order where the plan
 ends in a sort), and it comes back empty exactly when it is one of
 ``EMPTY``, the parts the generator's models leave without a row at this
@@ -16,7 +18,11 @@ scale.  The parts of ``EMPTY`` that a larger warehouse gives rows
 (``FEW_ROWS``) are held the same way there, where each must find a
 row.  This module holds no tests itself."""
 
+import contextlib
+
 import pytest
+import torch
+from torch.overrides import TorchFunctionMode
 
 from ndstpu.engine import columnar as jax_columnar
 from ndstpu.engine.session import Session as JaxSession
@@ -25,6 +31,7 @@ from ndstpu.schema import DType as JaxDType
 from ndstpu_torch import datagen
 from ndstpu_torch.engine.plan import fixes_order
 from ndstpu_torch.engine.session import Session
+from ndstpu_torch.ops import segsum
 from ndstpu_torch.queries import corpus
 from test_jaxexec import assert_tables_match
 
@@ -108,15 +115,86 @@ def larger():
     return get
 
 
+# torch calls that wait for the device or copy from the host: a CUDA
+# graph capture refuses them, so the replay path must make none
+_SYNCS = {torch.Tensor.item, torch.Tensor.__bool__, torch.Tensor.__int__,
+          torch.Tensor.__float__, torch.Tensor.__index__,
+          torch.Tensor.tolist, torch.Tensor.numpy, torch.Tensor.cpu,
+          torch.nonzero, torch.Tensor.nonzero, torch.argwhere,
+          torch.unique, torch.Tensor.unique, torch.masked_select,
+          torch.isin, torch.as_tensor, torch.tensor, torch.from_numpy}
+
+
+def _indexes(idx):
+    return idx if isinstance(idx, tuple) else (idx,)
+
+
+class NoHostSync(TorchFunctionMode):
+    """Raises on a torch call that would sync with the device or copy
+    from the host (``_SYNCS``, a boolean-mask index, a slice bounded by a
+    tensor, an assignment of a Python value into a tensor, which copies
+    it from the host).  The segment-sum kernel's CPU stand-in is let
+    through: on the card that call is the kernel."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in _SYNCS:
+            raise AssertionError(f"host sync in replay: {func.__name__}")
+        if func is torch.Tensor.__setitem__ and \
+                not isinstance(args[2], torch.Tensor):
+            raise AssertionError("host copy in replay: a Python value "
+                                 "assigned into a tensor")
+        if func in (torch.Tensor.__getitem__, torch.Tensor.__setitem__):
+            for i in _indexes(args[1]):
+                if isinstance(i, torch.Tensor) and i.dtype == torch.bool or \
+                        isinstance(i, slice) and any(
+                            isinstance(x, torch.Tensor)
+                            for x in (i.start, i.stop, i.step)):
+                    raise AssertionError("host sync in replay: a mask or "
+                                         "tensor-bounded index")
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def replays_without_sync(exe):
+    """Run ``exe``'s replays under :class:`NoHostSync` (the executor's own
+    read-back after a replay is outside it)."""
+    run, kernel = exe._replay_run, segsum.segment_sum_decimal
+
+    def guarded(cp, bufs, values):
+        with NoHostSync():
+            return run(cp, bufs, values)
+
+    def stand_in(*args):
+        with torch._C.DisableTorchFunction():
+            return kernel(*args)
+
+    exe._replay_run = guarded
+    segsum.segment_sum_decimal = stand_in
+    try:
+        yield
+    finally:
+        del exe._replay_run
+        segsum.segment_sum_decimal = kernel
+
+
 def check_part(sessions, name: str, empty=EMPTY):
-    """``name`` through both engines: their results agree, and it is
-    empty exactly when it is one of ``empty``."""
+    """``name`` through both engines: the port's first run (discovery)
+    and its second (the replay of what it discovered, which must make no
+    host sync) each agree with the JAX engine, and the part is empty
+    exactly when it is one of ``empty``."""
     jax_sess, torch_sess = sessions
     sql = SQL[name]
-    table = torch_sess.sql(sql)
+    exe = torch_sess.executor
+    first = torch_sess.sql(sql)
+    replays, discoveries = exe.n_replays, exe.n_discoveries
+    with replays_without_sync(exe):
+        second = torch_sess.sql(sql)
+    assert (exe.n_replays, exe.n_discoveries) == \
+        (replays + 1, discoveries), "the second run did not replay"
     want = jax_sess.sql(sql)
-    assert want.column_names == table.column_names
-    assert_tables_match(want, table,
-                        ordered=fixes_order(torch_sess.plan(sql)[0]))
-    assert (table.num_rows == 0) == (name in empty), \
-        f"{name}: {table.num_rows} rows"
+    ordered = fixes_order(torch_sess.plan(sql)[0])
+    for table in (first, second):
+        assert want.column_names == table.column_names
+        assert_tables_match(want, table, ordered=ordered)
+    assert (first.num_rows == 0) == (name in empty), \
+        f"{name}: {first.num_rows} rows"
