@@ -13,7 +13,7 @@ non-zero:
 2. build: every CUDA kernel of the port from ``ndstpu_torch/ops/csrc``,
    one ``nvcc`` per source, all started together;
 3. data: the store-channel columns (``datagen.COLUMNS``) generated on
-   the card at ``--scale`` (``STORE_SCALE``, SF 100);
+   the card at ``--scale`` (``STORE_SCALE``, SF 20);
 4. kernels: each kernel against its plain PyTorch version on the card:
    ``segsum_decimal`` bit-exact (tolerance 0: exact int64) at the main
    path's own inputs (captured from a q42 run), at 8,000,000 Zipf-skewed
@@ -98,13 +98,27 @@ non-zero:
     (floats within 1e-5 relative), and a part that calls the kernel here
     but did not in phase 10 fails the script.  Then, with every graph
     evicted, each part's plan run eagerly three times: one line per part
-    (the median, and the runs that ran out of memory and ran again).
+    (the median, and the runs that ran out of memory and ran again);
+12. power: with this process holding no table or graph, stream 0
+    written by ``python -m ndstpu_torch.queries.streamgen`` (its parts
+    must be the corpus's renderings) and run twice by ``python -m
+    ndstpu_torch.harness.power``, each run generating the warehouse at
+    ``CORPUS_SCALE`` on the card: cold, saving compile records, then
+    preloading them.  One line a run: its time log (``Power Test Time``,
+    ``Total Time``, the load and preload rows, each part's ms), every
+    part's status (each must be ``Completed``) and rows (each must equal
+    phase 11's), the metrics sidecar's discoveries, compiled-plan hits
+    and misses, captures and ``segsum_decimal`` launches, the wall
+    seconds.
 
-Phases 5, 6, 7, 8, 9 and 11 are the main paths: the kernel launch counts
-(``segsum.LAUNCHES``, the wrapper's own, and ``segsum.REPLAY_LAUNCHES``,
-those of graph replays, counted by ``torch.profiler`` from the card's
-kernel events in the replays it profiles) are set to 0 just before each
-and read just after, and every kernel each path runs must have launched.
+Phases 5, 6, 7, 8, 9, 11 and 12 are the main paths: the kernel launch
+counts (``segsum.LAUNCHES``, the wrapper's own, and
+``segsum.REPLAY_LAUNCHES``, those of graph replays, counted by
+``torch.profiler`` from the card's kernel events in the replays it
+profiles) are set to 0 just before each and read just after, and every
+kernel each path runs must have launched.  Phase 12's runs are processes
+of their own: their launches are the wrapper's, which each run's metrics
+sidecar carries (``kernel.segsum_decimal.launches``).
 Then one JSON line of kernels, and last the result line ``{"ok": true,
 "device": {...}}``.
 """
@@ -118,6 +132,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -139,10 +154,14 @@ LIMIT = 100
 # the whole script took 997 s on an H100, and the check grows about
 # linearly with the scale, so SF 2 or 3 would leave too little of the
 # 1,200 s.  At SF 30 on an 80 GB H100, q72 runs out of memory and q17
-# peaks at 80.8 GB, so the corpus runs at SF 20
+# peaks at 80.8 GB, so the corpus runs at SF 20.  The two power runs at
+# SF 20 take about 250 s, which the store-channel paths pay for: they took
+# 385 s at SF 100 and 232 s at SF 50, and with them at SF 50 the whole
+# script took 1,170 s on an H100, so they run at SF 20 (q41's reference
+# needs SF 10 or more: at SF 1 no item qualifies)
 CHECK_SCALE = 1.0
 CORPUS_SCALE = 20.0
-STORE_SCALE = 100.0
+STORE_SCALE = 20.0
 SEGMENTS_Q42 = 24443
 BENCH_ROWS, BENCH_SEGMENTS = 4_000_000, 1024
 
@@ -1654,7 +1673,7 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
     counted from the replay's device events).  Last, with every graph
     evicted, each part's plan three times eagerly, the yardstick of the
     replays.  Returns the path's launches (the wrapper's, the profiled
-    replays') and that shape's record."""
+    replays'), that shape's record and each part's rows."""
     from ndstpu_torch import datagen
     from ndstpu_torch.engine import torchexec
     from ndstpu_torch.engine.session import Session
@@ -1692,6 +1711,7 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
     exe = sess.executor
     segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
     sums = {"cold_ms": 0.0, "replay_warm_ms": 0.0}
+    rows = {}
     for name, sql in parts:
         allocated = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1722,6 +1742,7 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
                 f"{name} launched segsum_decimal at SF {scale:g} but not at "
                 f"the check's scale: its calls were not held bit-exact")
         warm_ms = statistics.median(warm)
+        rows[name] = table.num_rows
         sums["cold_ms"] += cold
         sums["replay_warm_ms"] += warm_ms
         say("corpus", part=name, rows=table.num_rows, cold_ms=cold,
@@ -1765,7 +1786,101 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
         seconds=time.time() - t0, kernel_launches=launches[0],
         replay_kernel_launches_profiled=launches[1], **counts,
         graph_budget_bytes=exe.graph_budget, **sums, card=card)
-    return launches, shape
+    return launches, shape, rows
+
+
+POWER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_power"
+
+
+def _plain_sql(text: str) -> str:
+    """A part's SQL without its comment lines and final semicolon."""
+    lines = [ln for ln in text.splitlines()
+             if not ln.lstrip().startswith("--")]
+    return "\n".join(lines).strip().rstrip(";").strip()
+
+
+def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
+               ) -> int:
+    """The power run, through its command line: stream 0 rendered by
+    ``python -m ndstpu_torch.queries.streamgen`` (its parts must be the
+    corpus's renderings), then ``python -m ndstpu_torch.harness.power``
+    on it twice, each generating the warehouse at ``scale`` on the card:
+    cold, writing compile records, then preloading them.  One ``power``
+    line a run: its time log's rows, every part's status (each must be
+    ``Completed``) and rows (each must equal the corpus phase's at the
+    same scale), the sidecar's counters, the wall seconds.  Returns the
+    two runs' ``segsum_decimal`` launches (the sidecars' counter: the
+    wrapper's own, in discovery)."""
+    import csv
+    import shutil
+    from ndstpu_torch.harness.power import gen_sql_from_stream
+    from ndstpu_torch.queries import corpus
+    shutil.rmtree(POWER_DIR, ignore_errors=True)
+    POWER_DIR.mkdir(parents=True)
+    subprocess.run([sys.executable, "-m", "ndstpu_torch.queries.streamgen",
+                    "--output_dir", str(POWER_DIR), "--rngseed",
+                    "07291122510", "--streams", "1"], check=True,
+                   stdout=subprocess.DEVNULL, timeout=120)
+    stream = POWER_DIR / "query_0.sql"
+    parts = gen_sql_from_stream(str(stream))
+    want = {n: _plain_sql(s) for n, s in corpus()}
+    if {n: _plain_sql(s) for n, s in parts.items()} != want:
+        raise AssertionError("stream 0's parts are not the corpus's "
+                             "renderings")
+    records = POWER_DIR / "compile_records.pkl"
+    launches = 0
+    for run in (1, 2):
+        out = POWER_DIR / f"run{run}"
+        cmd = [sys.executable, "-m", "ndstpu_torch.harness.power",
+               str(stream), "-", str(out / "time.csv"), "--generate",
+               f"{scale:g}", "--generate_seed", str(seed),
+               "--json_summary_folder", str(out / "summaries"),
+               "--compile_records", str(records)]
+        out.mkdir()
+        t0 = time.time()
+        with open(out / "power.log", "w") as log:
+            proc = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                  timeout=900)
+        wall = time.time() - t0
+        if proc.returncode != 0:
+            tail = (out / "power.log").read_text()[-4000:]
+            raise AssertionError(f"power run {run} exited "
+                                 f"{proc.returncode}:\n{tail}")
+        with open(out / "time.csv") as f:
+            ms = {r["query"]: int(r["time/milliseconds"])
+                  for r in csv.DictReader(f)}
+        status = {}
+        for p in (out / "summaries").glob("*.json"):
+            s = json.loads(p.read_text())
+            status[s["query"]] = s["queryStatus"][-1]
+        side = json.loads((out / "time.csv.metrics.json").read_text())
+        counters = side["counters"]
+        rows = {q["query"]: q["attrs"].get("result_rows")
+                for q in side["queries"]}
+        run_launches = counters.get("kernel.segsum_decimal.launches", 0)
+        launches += run_launches
+        say("power", run=run, card=card, scale=scale, parts=len(status),
+            power_test_ms=ms["Power Test Time"], total_ms=ms["Total Time"],
+            load_ms=ms["CreateTempView all tables"],
+            preload_ms=ms["Preload compile records"],
+            part_ms={n: ms[n] for n in parts if n in ms},
+            status=status,
+            discoveries=counters.get("engine.discoveries", 0),
+            compiled_hit=counters.get("engine.cache.compiled.hit", 0),
+            compiled_miss=counters.get("engine.cache.compiled.miss", 0),
+            captures=counters.get("engine.jit_builds", 0),
+            segsum_launches=run_launches, result_rows=rows,
+            cold_parts=side["totals"]["cold_queries"],
+            parent_reserved_bytes=torch.cuda.memory_reserved(),
+            wall_s=wall)
+        if set(status) != set(parts) or \
+                set(status.values()) != {"Completed"}:
+            raise AssertionError(f"power run {run}: statuses {status}")
+        differ = sorted(n for n in parts if rows.get(n) != corpus_rows[n])
+        if differ:
+            raise AssertionError(f"power run {run}: rows differ from the "
+                                 f"corpus phase's on {differ}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2028,12 +2143,21 @@ def main() -> int:
 
     # main path 6: the whole corpus at the run scale, its kernel checked
     # and timed at the path's own inputs first
-    corpus_launches, shape = corpus_run(segsum, args.corpus_scale,
-                                        args.seed, card, kernel_parts)
+    corpus_launches, shape, corpus_rows = corpus_run(
+        segsum, args.corpus_scale, args.seed, card, kernel_parts)
     k["shapes"].append(shape)
     k["max_abs_err"] = max(k["max_abs_err"], shape["max_abs_err"])
     if sum(corpus_launches) == 0:
         raise AssertionError("the corpus launched no segsum_decimal")
+
+    # main path 7: the power run's command line, in processes of its own;
+    # this one holds no table or graph meanwhile
+    gc.collect()
+    torch.cuda.empty_cache()
+    power_launches = power_runs(args.corpus_scale, args.seed, card,
+                                corpus_rows)
+    if power_launches == 0:
+        raise AssertionError("the power runs launched no segsum_decimal")
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -2043,14 +2167,15 @@ def main() -> int:
         "tpu_kernel": "ndstpu/ops/segsum.py::_limb_kernel",
         "launches": sum(family_launches) + bench_launches[0] +
         sum(store_launches) + sum(window_launches) + sum(setop_launches) +
-        sum(corpus_launches),
+        sum(corpus_launches) + power_launches,
         "launches_by_path": {"q3 family": sum(family_launches),
                              "bench": bench_launches[0],
                              "store slice": sum(store_launches),
                              "store window reports": sum(window_launches),
                              "set operations and distinct":
                              sum(setop_launches),
-                             "corpus": sum(corpus_launches)},
+                             "corpus": sum(corpus_launches),
+                             "power run": power_launches},
         "replay_launches_by_path": {
             "q3 family": family_launches[1], "bench": 0,
             "store slice": store_launches[1],

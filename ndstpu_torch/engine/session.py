@@ -18,6 +18,7 @@ import os
 import threading
 from typing import Dict, List
 
+from ndstpu_torch import faults, obs
 from ndstpu_torch.engine import columnar, planner as pl
 from ndstpu_torch.engine.latch import KeyedLatch
 from ndstpu_torch.engine.optimizer import optimize
@@ -53,18 +54,36 @@ class Session:
         # CanonResult or None)
         self._plan_cache: Dict[str, tuple] = {}
 
+    def fresh(self) -> "Session":
+        """A new session over the same catalog and device that shares
+        this one's device tables (the executor never writes them) and
+        none of its plans, compiled plans or graphs: the power run's
+        watchdog continues on one while an abandoned query still runs on
+        this one."""
+        new = Session(self.catalog, device=self.device,
+                      groupby=self.executor.groupby_mode)
+        new.executor.share_tables(self.executor)
+        return new
+
     def sql(self, text: str) -> columnar.Table:
         """Execute one query; returns its result table on the host."""
-        stmt = parse_statement(text)
-        if not isinstance(stmt, ast.Query):
-            raise NotImplementedError(
-                f"statement {type(stmt).__name__}: only queries are ported")
-        norm = normalize_sql_key(text)
-        plan, key, params, disp = self._run_args(stmt, norm)
-        with self._exec_lock:
-            out = self.executor.execute_cached(plan, key, params=params,
-                                               sql=norm)
-        return columnar.Table(dict(zip(disp, out.columns.values())))
+        # the whole statement is execute_s; the cold-path work nested in
+        # it (discovery, capture) carries its own compile_s bucket, which
+        # the tracer's self-time accounting subtracts
+        with obs.span("statement", cat="plan-node", bucket="execute_s",
+                      device=str(self.device)):
+            stmt = parse_statement(text)
+            if not isinstance(stmt, ast.Query):
+                raise NotImplementedError(
+                    f"statement {type(stmt).__name__}: only queries are "
+                    f"ported")
+            norm = normalize_sql_key(text)
+            plan, key, params, disp = self._run_args(stmt, norm)
+            with self._exec_lock:
+                faults.check("execute", key=norm)
+                out = self.executor.execute_cached(plan, key, params=params,
+                                                   sql=norm)
+            return columnar.Table(dict(zip(disp, out.columns.values())))
 
     def _run_args(self, stmt: "ast.Query", norm: str):
         """What ``sql`` hands the executor for a query: ``(plan, key,
@@ -90,13 +109,19 @@ class Session:
         cache: ``(plan, display names, CanonResult or None)``.  One slot
         a text, replaced when the catalog versions change; concurrent
         threads plan a text once (later arrivals wait on its latch)."""
+        faults.check("plan", key=key)
         with self._plan_latch.holding(key):
             state = tuple(sorted(self.catalog.versions.items()))
             with self._cache_lock:
                 ent = self._plan_cache.get(key)
-            if ent is not None and ent[0] == state:
+            if ent is not None and ent[0] != state:
+                ent = None
+            obs.inc("engine.cache.plan.hit" if ent is not None
+                    else "engine.cache.plan.miss")
+            if ent is not None:
                 return ent[1:]
-            plan, _cols, disp = self._plan_fresh(stmt)
+            with obs.span("plan", cat="plan-node"):
+                plan, _cols, disp = self._plan_fresh(stmt)
             canon = self._canonicalize(plan, key)
             with self._cache_lock:
                 self._plan_cache[key] = (state, plan, disp, canon)

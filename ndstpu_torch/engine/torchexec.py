@@ -61,6 +61,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ndstpu_torch import faults, obs
 from ndstpu_torch.engine import columnar, expr as ex, fp64, plan as lp
 from ndstpu_torch.engine.columnar import (
     BOOL,
@@ -1717,6 +1718,12 @@ class TorchExecutor:
         self._oks: Optional[List[torch.Tensor]] = None
 
     # -- public --------------------------------------------------------------
+
+    def share_tables(self, other: "TorchExecutor") -> None:
+        """Use ``other``'s device copies of the catalog's tables (no
+        query writes a cached table), so that a second executor over the
+        same catalog uploads none of them again."""
+        self._device_cache = dict(other._device_cache)
 
     def execute_to_host(self, p: lp.Plan) -> Table:
         """Run ``p`` eagerly (exact sizes) and bring its result to the
@@ -3398,7 +3405,7 @@ class CompilingExecutor(TorchExecutor):
     """
 
     # bump when the pickle layout of save_compile_records changes
-    _REC_FORMAT = 1
+    _REC_FORMAT = 2
 
     def __init__(self, catalog, device, groupby: str = GROUPBY_DEFAULT):
         super().__init__(catalog, device, groupby=groupby)
@@ -3466,9 +3473,12 @@ class CompilingExecutor(TorchExecutor):
             self._drop(slot)
             cp = None
         if cp is None:
+            faults.check("compile", key=key)
+            obs.inc("engine.cache.compiled.miss")
             if any(k == key for k, _sig in self._compiled):
                 self.n_memo_sig_misses += 1
             return self._discover_query(p, slot, versions, params, sql)
+        obs.inc("engine.cache.compiled.hit")
         try:
             result = self._replay_query(cp, params)
         except _Drift:
@@ -3507,6 +3517,18 @@ class CompilingExecutor(TorchExecutor):
     def _discover_query(self, p: lp.Plan, slot: tuple, versions,
                         params: Optional[ex.ParamBinding],
                         sql: Optional[str]) -> Table:
+        # the whole first pass (discovery, capture and the checked first
+        # replay) is cold-path cost a steady-state run never pays: the
+        # harness's per-query split reads it as compile_s
+        with obs.span("discover_query", cat="plan-node",
+                      bucket="compile_s"):
+            obs.inc("engine.discoveries")
+            return self._discover_query_traced(p, slot, versions, params,
+                                               sql)
+
+    def _discover_query_traced(self, p: lp.Plan, slot: tuple, versions,
+                               params: Optional[ex.ParamBinding],
+                               sql: Optional[str]) -> Table:
         t0 = time.perf_counter()
         cp, host = self._with_memory(
             lambda: self._discover(p, slot, versions, params))
@@ -3515,7 +3537,7 @@ class CompilingExecutor(TorchExecutor):
         self._compiled[slot] = cp
         syncs = self.n_syncs
         if self.warm_replay:
-            got = self._replay_query(cp, params)
+            got = self._replay_query(cp, params, bucket="compile_s")
             if got is None:
                 raise RuntimeError(
                     f"the first replay of {slot[0]!r} failed its guards "
@@ -3614,11 +3636,26 @@ class CompilingExecutor(TorchExecutor):
             self._rec = self._oks = None
 
     def _replay_query(self, cp: _CompiledPlan,
-                      binding: Optional[ex.ParamBinding]) -> Optional[Table]:
+                      binding: Optional[ex.ParamBinding],
+                      bucket: str = "execute_s") -> Optional[Table]:
         """Replay ``cp`` under ``binding`` (one of its memo signature): on
         CUDA its graph (captured now if it has none), on the CPU its
         operators.  One read-back of the guards and the result; None when
-        a guard failed."""
+        a guard failed.  The replay's time goes to ``bucket`` of the
+        harness's per-query split: ``compile_s`` for discovery's checked
+        first replay, ``execute_s`` otherwise."""
+        with obs.span("replay", cat="plan-node", bucket=bucket):
+            return self._replay_query_traced(cp, binding)
+
+    def _replay_query_traced(self, cp: _CompiledPlan,
+                             binding: Optional[ex.ParamBinding]
+                             ) -> Optional[Table]:
+        # the plan's tables go to the device first (jaxexec's _build_jit
+        # uploads them before it traces): an upload reads the columns'
+        # bounds back to the host, which a capture cannot, and a preloaded
+        # record's first run captures before any discovery uploaded them
+        for name in cp.table_cols or ():
+            self._table_device(name)
         values = binding.values if binding is not None else None
         args = _param_args_np(cp.param_spec, binding)
         if not self.capture:
@@ -3672,17 +3709,20 @@ class CompilingExecutor(TorchExecutor):
         one's pool (discovery's temporaries predict it), and all of them
         if the capture still runs out of device memory, before its one
         retry."""
-        segsum.prepare(self.device)
-        self._make_room(cp.peak_bytes)
-        try:
+        # a capture is the port's counterpart of jaxexec's jit build
+        obs.inc("engine.jit_builds")
+        with obs.span("capture", cat="plan-node", bucket="compile_s"):
+            segsum.prepare(self.device)
+            self._make_room(cp.peak_bytes)
+            try:
+                self._capture_once(cp, args, values)
+                return
+            except torch.OutOfMemoryError:
+                cp.drop_graph()
+                if not self._graphs:
+                    raise
+            self._evict(len(self._graphs))
             self._capture_once(cp, args, values)
-            return
-        except torch.OutOfMemoryError:
-            cp.drop_graph()
-            if not self._graphs:
-                raise
-        self._evict(len(self._graphs))
-        self._capture_once(cp, args, values)
 
     def _capture_once(self, cp: _CompiledPlan, args: dict, values) -> None:
         cp.bufs = {k: torch.as_tensor(v).to(self.device)
@@ -3793,9 +3833,11 @@ class CompilingExecutor(TorchExecutor):
                                 for t in sorted(cp.table_cols or ()))
                 except KeyError:
                     continue  # references a since-dropped table
+                # discovery's peak sizes a preloaded record's capture
+                # (its arena, and the room made for its pool)
                 data[sql] = (cp.record, fps, cp.table_cols, cp.out_meta,
                              cp.param_spec, [h for h, _t in cp.consts],
-                             cp.memo_sig)
+                             cp.memo_sig, cp.peak_bytes)
             try:
                 with open(path, "rb") as f:
                     prev = pickle.load(f)
@@ -3830,7 +3872,7 @@ class CompilingExecutor(TorchExecutor):
                 if sql.startswith("\x00"):
                     continue
                 (record, fps, table_cols, out_meta, pspec, hosts,
-                 memo_sig) = ent
+                 memo_sig, peak_bytes) = ent
                 try:
                     if any(self._table_fingerprint(fp[0]) != fp
                            for fp in fps):
@@ -3847,6 +3889,6 @@ class CompilingExecutor(TorchExecutor):
                     out_meta=out_meta, param_spec=pspec, memo_sig=memo_sig,
                     consts=[(h, torch.as_tensor(h).to(self.device))
                             for h in hosts],
-                    source_sql=sql, preloaded=True)
+                    source_sql=sql, preloaded=True, peak_bytes=peak_bytes)
                 n += 1
             return n

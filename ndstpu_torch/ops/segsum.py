@@ -53,6 +53,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ndstpu_torch import obs
+
 _BIAS = 1 << 41
 _POISON = -(1 << 62)
 
@@ -61,7 +63,10 @@ _POISON = -(1 << 62)
 # LAUNCHES counts the wrapper's own launches; REPLAY_LAUNCHES the
 # launches of segsum_decimal that graph replays made inside
 # counting_replays(), counted by the profiler (a capture launches nothing
-# and counts in neither)
+# and counts in neither).  Each of the wrapper's own launches of
+# segsum_decimal also adds to the obs counter
+# kernel.segsum_decimal.launches, which a power run's metrics sidecar
+# carries out of its process
 LAUNCHES = 0            # segsum_decimal
 REPLAY_LAUNCHES = 0     # segsum_decimal, by graph replays (profiled)
 LAUNCHES_F32 = 0        # segsum_f32
@@ -367,6 +372,7 @@ def segment_sum_decimal(vals: torch.Tensor, gid: torch.Tensor,
             cap.n += 1
         else:
             LAUNCHES += 1
+            obs.inc("kernel.segsum_decimal.launches")
     return out
 
 

@@ -1,11 +1,16 @@
 """Query rendering: the NDS templates with their parameters drawn.
 
-A copy of the JAX package's ``queries/streamgen.py`` rendering
-(``list_templates``, ``render_template_parts``, ``render_power_corpus``
-and ``BENCH_RNGSEED``), its imports changed only: it reads this package's
-copy of the templates and the port's ``datagen/dists.json``, the file the
-port's generator draws its value pools from.  The stream-file writers and
-the command line stay in the JAX package.
+A copy of the JAX package's ``queries/streamgen.py`` (the rendering,
+``list_templates``, ``render_template_parts``, ``render_power_corpus``,
+``BENCH_RNGSEED``, the stream-file writers and the command line), its
+imports changed only: it reads this package's copy of the templates and
+the port's ``datagen/dists.json``, the file the port's generator draws its
+value pools from.  So
+
+    python -m ndstpu_torch.queries.streamgen --output_dir D \
+        --rngseed 07291122510 --streams N
+
+writes the same ``query_N.sql`` files as the JAX package's command.
 
 Templates declare parameters in a header line per parameter:
     --@ define NAME = uniform(lo, hi)      integer uniform inclusive
@@ -23,7 +28,9 @@ Templates declare parameters in a header line per parameter:
 
 from __future__ import annotations
 
+import argparse
 import hashlib
+import os
 import random
 import re
 from pathlib import Path
@@ -178,3 +185,102 @@ def render_template_parts(template_path: str, rngseed: str,
         return [(base, sql)]
     return [(f"{base}_part{k}", stmt + ";")
             for k, stmt in enumerate(stmts, 1)]
+
+
+def _query_order(templates: List[str], rngseed: str,
+                 stream: int) -> List[str]:
+    """Stream 0 = canonical order (the Power Run); streams >= 1 get a
+    deterministic permutation (TPC-DS per-stream ordering)."""
+    if stream == 0:
+        return list(templates)
+    rng = random.Random(_stable_seed(rngseed, stream, "__order__"))
+    out = list(templates)
+    rng.shuffle(out)
+    return out
+
+
+def generate_query_streams(template_dir: Optional[str], rngseed: str,
+                           output_dir: str, streams: int) -> List[str]:
+    """Write query_{stream}.sql for streams 0..N-1; returns file paths."""
+    os.makedirs(output_dir, exist_ok=True)
+    d = Path(template_dir) if template_dir else TEMPLATE_DIR
+    templates = list_templates(template_dir)
+    if not templates:
+        raise FileNotFoundError(f"no query*.tpl under {d}")
+    paths = []
+    for stream in range(streams):
+        parts = []
+        order = _query_order(templates, rngseed, stream)
+        for i, tpl in enumerate(order):
+            sql = render_template(str(d / tpl), rngseed, stream)
+            if not sql.rstrip().endswith(";"):
+                sql = sql.rstrip() + "\n;"
+            parts.append(
+                f"-- start query {i + 1} in stream {stream} "
+                f"using template {tpl}\n{sql}\n"
+                f"-- end query {i + 1} in stream {stream} "
+                f"using template {tpl}\n")
+        path = os.path.join(output_dir, f"query_{stream}.sql")
+        with open(path, "w") as f:
+            f.write("\n".join(parts))
+        paths.append(path)
+    return paths
+
+
+def generate_single_template(template: str, template_dir: Optional[str],
+                             rngseed: str, output_dir: str) -> List[str]:
+    """Render one template (test mode) as a one-query stream file
+    `query_0.sql` WITH start/end markers — dsqgen emits the spark.tpl
+    markers in single-template mode too, and the power runner's parser
+    requires them (reference nds_gen_query_stream.py:57-89,
+    nds_power.py:49-76).  Multi-statement templates additionally produce
+    split _part1/_part2 files (nds_gen_query_stream.py:91-103)."""
+    os.makedirs(output_dir, exist_ok=True)
+    d = Path(template_dir) if template_dir else TEMPLATE_DIR
+    name = template if template.endswith(".tpl") else template + ".tpl"
+    sql = render_template(str(d / name), rngseed, 0)
+    if not sql.rstrip().endswith(";"):
+        sql = sql.rstrip() + "\n;"
+    stream_path = os.path.join(output_dir, "query_0.sql")
+    with open(stream_path, "w") as f:
+        f.write(f"-- start query 1 in stream 0 using template {name}\n"
+                f"{sql}\n"
+                f"-- end query 1 in stream 0 using template {name}\n")
+    out_paths = [stream_path]
+    parts = render_template_parts(str(d / name), rngseed, 0)
+    if len(parts) > 1:
+        for part_name, stmt in parts:
+            p = os.path.join(output_dir, f"{part_name}.sql")
+            with open(p, "w") as f:
+                f.write(stmt.rstrip(";").rstrip() + ";\n")
+            out_paths.append(p)
+    return out_paths
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="NDS query stream generator")
+    p.add_argument("--template_dir",
+                   help="directory of query templates "
+                        "(default: builtin corpus)")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--rngseed", default="0",
+                   help="RNG seed (chained from the load test end timestamp "
+                        "per TPC-DS spec 4.3.1)")
+    g = p.add_mutually_exclusive_group(required=True)
+    g.add_argument("--template",
+                   help="render one template (test mode)")
+    g.add_argument("--streams", type=int,
+                   help="generate N permuted full streams")
+    return p
+
+
+if __name__ == "__main__":
+    args = build_parser().parse_args()
+    if args.template:
+        out = generate_single_template(args.template, args.template_dir,
+                                       args.rngseed, args.output_dir)
+    else:
+        out = generate_query_streams(args.template_dir, args.rngseed,
+                                     args.output_dir, args.streams)
+    for p in out:
+        print(p)
