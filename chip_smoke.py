@@ -69,9 +69,9 @@ non-zero:
     copied to the host; every part of the power corpus (103
     parts, rngseed 07291122510, stream 0) run twice through ``Session(
     device="cuda")`` (discovery, capture and first replay; then a
-    replay) and twice through ``Session(device="cpu")`` (discovery; then
-    a replay at the recorded capacities) over the same tables, the four
-    results held together (ints, decimals, dates and strings exact,
+    replay) and once through ``Session(device="cpu")`` (discovery) over
+    the same tables, the three results held together (ints, decimals,
+    dates and strings exact,
     floats within 1e-5 relative, in order where the plan ends in a
     sort), with every ``segsum_decimal`` call of the card's discovery
     held bit-exact against the plain version at its own inputs, and every
@@ -88,39 +88,74 @@ non-zero:
     ``segsum_decimal`` calls of the parts that called it in phase 10 held
     bit-exact as there (discovery's and the replayed graph's), the call
     with the most rows checked and timed as a kernel shape as in phase 4;
-    then every part run cold (discovery, capture, first replay), three
-    times warm (replays) and once more under ``torch.profiler`` (the
-    ``segsum_decimal`` launches of one replay, counted from the device
-    events): one line per part (cold, capture and replay ms, rows, peak
+    then every part run cold (discovery, capture, first replay), once
+    warm (a replay) and, where its graph recorded ``segsum_decimal``
+    calls, once more under ``torch.profiler`` (the launches of one
+    replay, counted from the device events, which must be those calls):
+    one line per part (cold, capture and replay ms, rows, peak
     device and graph pool bytes, host syncs of the cold run and of a
     replay, discoveries, captures, evictions, memo hits,
     ``segsum_decimal`` launches).  Every replay equals its discovery run
     (floats within 1e-5 relative), and a part that calls the kernel here
-    but did not in phase 10 fails the script.  Then, with every graph
-    evicted, each part's plan run eagerly three times: one line per part
-    (the median, and the runs that ran out of memory and ran again);
-12. power: with this process holding no table or graph, stream 0
-    written by ``python -m ndstpu_torch.queries.streamgen`` (its parts
-    must be the corpus's renderings) and run twice by ``python -m
-    ndstpu_torch.harness.power``, each run generating the warehouse at
-    ``CORPUS_SCALE`` on the card: cold, saving compile records, then
+    but did not in phase 10 fails the script;
+12. power: with this process holding no table or graph, streams 0, 1
+    and 2 written by ``python -m ndstpu_torch.queries.streamgen`` (stream
+    0's parts must be the corpus's renderings) and stream 0 run twice by
+    ``python -m ndstpu_torch.harness.power``, each run generating the
+    warehouse at ``CORPUS_SCALE`` on the card and keeping the run ledger
+    ``LEDGER``, new each script run: cold, saving compile records, then
     preloading them.  One line a run: its time log (``Power Test Time``,
     ``Total Time``, the load and preload rows, each part's ms), every
     part's status (each must be ``Completed``) and rows (each must equal
     phase 11's), the metrics sidecar's discoveries, compiled-plan hits
-    and misses, captures and ``segsum_decimal`` launches, the wall
-    seconds.
+    and misses, captures and ``segsum_decimal`` launches, its ledger rows
+    and sentinel verdicts, the wall seconds;
+13. throughput: (a) streams 1 and 2, whole, as two threads over one
+    shared session in this process (``scheduler.run_streams_inproc``,
+    what ``python -m ndstpu_torch.harness.throughput --mode inproc
+    --concurrent 2`` runs), the warehouse generated once at
+    ``CORPUS_SCALE``, phase 12's compile records preloaded and its ledger
+    giving the priors.  One line: the throughput elapsed, each stream's
+    ``Power Test Time`` and part ms, every part's status (each
+    ``Completed``, or ``CompletedWithTaskFailures`` for a failed guard's
+    rediscovery notice alone, one for each guard that failed), the
+    overlap report (both streams at once), the sidecar's and the
+    executor's counters (one plan miss for each distinct text planned,
+    the streams' and the preloaded records'), the ledger rows, peak
+    bytes, the wall seconds.  Then on this thread,
+    every part whose compiled entry recorded ``segsum_decimal`` calls
+    replayed once under ``torch.profiler`` (its launches must be those
+    calls) and held against an eager run of its plan.  (b) The same
+    streams cut to ``PROCESS_PARTS`` through ``python -m
+    ndstpu_torch.harness.throughput --concurrent 1``, a power process a
+    stream, each generating the warehouse at ``CHECK_SCALE``: it must
+    exit 0 with every part ``Completed``, ``segsum_decimal`` launched in
+    each process, and one admission slot.
 
-Phases 5, 6, 7, 8, 9, 11 and 12 are the main paths: the kernel launch
-counts (``segsum.LAUNCHES``, the wrapper's own, and
+Phases 5, 6, 7, 8, 9, 11, 12 and 13 are the main paths: the kernel
+launch counts (``segsum.LAUNCHES``, the wrapper's own, and
 ``segsum.REPLAY_LAUNCHES``, those of graph replays, counted by
 ``torch.profiler`` from the card's kernel events in the replays it
 profiles) are set to 0 just before each and read just after, and every
-kernel each path runs must have launched.  Phase 12's runs are processes
-of their own: their launches are the wrapper's, which each run's metrics
-sidecar carries (``kernel.segsum_decimal.launches``).
+kernel each path runs must have launched.  The runs of phases 12 and
+13 (b) are processes of their own: their launches are the wrapper's,
+which each run's metrics sidecar carries
+(``kernel.segsum_decimal.launches``).
 Then one JSON line of kernels, and last the result line ``{"ok": true,
 "device": {...}}``.
+
+Depth, cut to keep the script inside its time limit (the throughput phase
+took 314-345 s on an H100; the whole script 1,181 s with the first two
+cuts, 1,120 s with the first five): the corpus phase no longer runs each
+plan eagerly after its replays (a median of 3 at first, then one run:
+about 160 s in all; ``python -m ndstpu_torch.profile --corpus --eager``
+times eager runs); the corpus check runs at SF 0.5, not 1 (27 s); the
+corpus phase replays each part once warm, not three times (about 73 s),
+and profiles only the replays of the parts whose graphs call the kernel;
+the check runs each part once on the CPU, not twice (about 28 s: the tests
+run the CPU replay of every part); and phases 5-9 replay each query once
+warm, not three times.  The widths, the scales of the corpus, power and
+throughput phases and the streams are whole.
 """
 
 from __future__ import annotations
@@ -158,8 +193,10 @@ LIMIT = 100
 # SF 20 take about 250 s, which the store-channel paths pay for: they took
 # 385 s at SF 100 and 232 s at SF 50, and with them at SF 50 the whole
 # script took 1,170 s on an H100, so they run at SF 20 (q41's reference
-# needs SF 10 or more: at SF 1 no item qualifies)
-CHECK_SCALE = 1.0
+# needs SF 10 or more: at SF 1 no item qualifies).  The throughput phase
+# took 314 s on an H100; the depth cuts in the docstring pay for it, the
+# check at SF 0.5 (where it has run before) among them
+CHECK_SCALE = 0.5
 CORPUS_SCALE = 20.0
 STORE_SCALE = 20.0
 SEGMENTS_Q42 = 24443
@@ -1541,17 +1578,18 @@ def first_difference(want: list, got: list, ordered: bool):
 
 def corpus_check(segsum, scale: float, seed: int, card: str) -> dict:
     """Every part of the power corpus on the card and on the CPU over the
-    same generated warehouse (the card's tables copied to the host), each
-    run twice on each (the compiled path's discovery, then its replay),
-    the four results held together: ints, decimals, dates and strings
-    exact, floats within 1e-5 relative, in order where the plan ends in a
-    sort.  Every ``segment_sum_decimal`` call of the card's first runs is
-    held bit-exact against the plain version (``segsum_calls``).  Then
-    each part's stream-1 rendering on the card: sharing stream 0's
-    canonical key, it must replay with no discovery unless a guard
-    failed; it must equal an eager run of its own text.  Returns the
-    largest error, the number of calls and the inputs of the call with
-    the most rows, and the parts whose card runs called the kernel."""
+    same generated warehouse (the card's tables copied to the host), run
+    twice on the card (the compiled path's discovery, then its replay)
+    and once on the CPU, the three results held together: ints, decimals,
+    dates and strings exact, floats within 1e-5 relative, in order where
+    the plan ends in a sort.  Every ``segment_sum_decimal`` call of the
+    card's first runs is held bit-exact against the plain version
+    (``segsum_calls``).  Then each part's stream-1 rendering on the card:
+    sharing stream 0's canonical key, it must replay with no discovery
+    unless a guard failed; it must equal an eager run of its own text.
+    Returns the largest error, the number of calls and the inputs of the
+    call with the most rows, and the parts whose card runs called the
+    kernel."""
     from ndstpu_torch import datagen
     from ndstpu_torch.engine.plan import fixes_order
     from ndstpu_torch.engine.session import Session
@@ -1581,14 +1619,12 @@ def corpus_check(segsum, scale: float, seed: int, card: str) -> dict:
         replay_syncs, memo = exe.n_syncs, exe.n_memo_hits
         t1 = time.time()
         want = engine_rows(on_cpu.sql(sql), nulls=True)
-        cpu_again = on_cpu.sql(sql)
         cpu_s += time.time() - t1
         ordered = fixes_order(on_card.plan(sql)[0])
         diffs = {run: first_difference(want, engine_rows(t, nulls=True),
                                        ordered)
                  for run, t in (("card first", first),
-                                ("card second", second),
-                                ("cpu second", cpu_again))}
+                                ("card second", second))}
         diffs = {run: d for run, d in diffs.items() if d is not None}
         if first.num_rows == 0:
             empty.append(name)
@@ -1668,12 +1704,11 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
     domain is small, and domains grow with the scale.  A part that calls
     it here and did not there fails the phase.)  Then, with the launch
     counts zeroed, each part cold (discovery, capture, first replay),
-    three times warm (replays, each held against the cold run) and once
-    more under ``torch.profiler`` (its ``segsum_decimal`` launches
-    counted from the replay's device events).  Last, with every graph
-    evicted, each part's plan three times eagerly, the yardstick of the
-    replays.  Returns the path's launches (the wrapper's, the profiled
-    replays'), that shape's record and each part's rows."""
+    once warm (a replay, held against the cold run) and, where its graph
+    recorded ``segsum_decimal`` calls, once more under ``torch.profiler``
+    (its launches counted from the replay's device events).  Returns the
+    path's launches (the wrapper's, the profiled replays'), that shape's
+    record and each part's rows."""
     from ndstpu_torch import datagen
     from ndstpu_torch.engine import torchexec
     from ndstpu_torch.engine.session import Session
@@ -1724,31 +1759,29 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
         cold_syncs = exe.n_syncs
         peak = torch.cuda.max_memory_allocated()
         cp = sess.compiled_plan(sql)
-        warm = []
-        for _ in range(3):
-            t1 = time.perf_counter()
-            again = sess.sql(sql)
-            torch.cuda.synchronize()
-            warm.append((time.perf_counter() - t1) * 1e3)
-            diff = torchexec.results_differ(table, again)
-            if diff is not None:
-                raise AssertionError(f"{name}: a replay differs from its "
-                                     f"discovery run: {diff}")
+        t1 = time.perf_counter()
+        again = sess.sql(sql)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t1) * 1e3
+        diff = torchexec.results_differ(table, again)
+        if diff is not None:
+            raise AssertionError(f"{name}: a replay differs from its "
+                                 f"discovery run: {diff}")
         replay_syncs, memo = exe.n_syncs, exe.n_memo_hits
-        profiled = profiled_replay(segsum, sess, sql, cp, name)
+        # a graph that recorded no segsum_decimal call launches none
+        profiled = profiled_replay(segsum, sess, sql, cp, name) \
+            if cp.kernel_calls else 0
         launched = decimal_launches(segsum) - before[0]
-        if launched and name not in kernel_parts:
+        if (launched or cp.kernel_calls) and name not in kernel_parts:
             raise AssertionError(
                 f"{name} launched segsum_decimal at SF {scale:g} but not at "
                 f"the check's scale: its calls were not held bit-exact")
-        warm_ms = statistics.median(warm)
         rows[name] = table.num_rows
         sums["cold_ms"] += cold
         sums["replay_warm_ms"] += warm_ms
         say("corpus", part=name, rows=table.num_rows, cold_ms=cold,
             discover_ms=cp.discover_s * 1e3, capture_ms=cp.capture_s * 1e3,
-            replay_warm_ms=warm_ms,
-            replay_ms=warm, peak_bytes=peak, pool_bytes=cp.pool_bytes,
+            replay_warm_ms=warm_ms, peak_bytes=peak, pool_bytes=cp.pool_bytes,
             discovery_peak_bytes=cp.peak_bytes, allocated_before=allocated,
             held_pool_bytes=exe.pool_bytes(), host_syncs=cold_syncs,
             replay_host_syncs=replay_syncs, memo_hits=memo,
@@ -1765,23 +1798,6 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
                   guard_failures=exe.n_guard_failures,
                   memo_signature_misses=exe.n_memo_sig_misses,
                   oom_retries=exe.n_oom_retries)
-    # the yardstick: each plan eagerly, with no graph held
-    exe.evict_all()
-    sums["eager_warm_ms"] = 0.0
-    for name, sql in parts:
-        plan = sess.plan(sql)[0]
-        retries = exe.n_oom_retries
-        runs = []
-        for _ in range(3):
-            t1 = time.perf_counter()
-            exe.execute_to_host(plan)
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t1) * 1e3)
-        sums["eager_warm_ms"] += statistics.median(runs)
-        say("corpus eager", part=name, eager_warm_ms=statistics.median(runs),
-            eager_ms=runs, host_syncs=exe.n_syncs,
-            held_pool_bytes=exe.pool_bytes(),
-            oom_retries=exe.n_oom_retries - retries, card=card)
     say("corpus summary", scale=scale, parts=len(parts),
         seconds=time.time() - t0, kernel_launches=launches[0],
         replay_kernel_launches_profiled=launches[1], **counts,
@@ -1790,6 +1806,8 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
 
 
 POWER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_power"
+# the run ledger of the power and throughput phases, made anew each run
+LEDGER = POWER_DIR / "ledger.jsonl"
 
 
 def _plain_sql(text: str) -> str:
@@ -1799,19 +1817,38 @@ def _plain_sql(text: str) -> str:
     return "\n".join(lines).strip().rstrip(";").strip()
 
 
+def _time_log(path: Path) -> dict:
+    """A time log's rows, {query: milliseconds}."""
+    import csv
+    with open(path) as f:
+        return {r["query"]: int(r["time/milliseconds"])
+                for r in csv.DictReader(f)}
+
+
+def _statuses(folder: Path) -> dict:
+    """Each summary's query: (last status, task failures)."""
+    out = {}
+    for p in folder.glob("*.json"):
+        s = json.loads(p.read_text())
+        out[s["query"]] = (s["queryStatus"][-1], s["taskFailures"])
+    return out
+
+
 def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
                ) -> int:
-    """The power run, through its command line: stream 0 rendered by
-    ``python -m ndstpu_torch.queries.streamgen`` (its parts must be the
-    corpus's renderings), then ``python -m ndstpu_torch.harness.power``
-    on it twice, each generating the warehouse at ``scale`` on the card:
-    cold, writing compile records, then preloading them.  One ``power``
-    line a run: its time log's rows, every part's status (each must be
-    ``Completed``) and rows (each must equal the corpus phase's at the
-    same scale), the sidecar's counters, the wall seconds.  Returns the
-    two runs' ``segsum_decimal`` launches (the sidecars' counter: the
-    wrapper's own, in discovery)."""
-    import csv
+    """The power run, through its command line: streams 0, 1 and 2
+    rendered by ``python -m ndstpu_torch.queries.streamgen`` (stream 0's
+    parts must be the corpus's renderings; the throughput phase runs 1
+    and 2), then ``python -m ndstpu_torch.harness.power`` on stream 0
+    twice, each generating the warehouse at ``scale`` on the card: cold,
+    writing compile records, then preloading them, each with the run
+    ledger ``LEDGER``, new in this script run (the first run appends cold
+    rows, the second is judged against them).  One ``power`` line a run:
+    its time log's rows, every part's status (each must be ``Completed``)
+    and rows (each must equal the corpus phase's at the same scale), the
+    sidecar's counters, ledger rows and sentinel verdicts, the wall
+    seconds.  Returns the two runs' ``segsum_decimal`` launches (the
+    sidecars' counter: the wrapper's own, in discovery)."""
     import shutil
     from ndstpu_torch.harness.power import gen_sql_from_stream
     from ndstpu_torch.queries import corpus
@@ -1819,7 +1856,7 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
     POWER_DIR.mkdir(parents=True)
     subprocess.run([sys.executable, "-m", "ndstpu_torch.queries.streamgen",
                     "--output_dir", str(POWER_DIR), "--rngseed",
-                    "07291122510", "--streams", "1"], check=True,
+                    "07291122510", "--streams", "3"], check=True,
                    stdout=subprocess.DEVNULL, timeout=120)
     stream = POWER_DIR / "query_0.sql"
     parts = gen_sql_from_stream(str(stream))
@@ -1835,7 +1872,7 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
                str(stream), "-", str(out / "time.csv"), "--generate",
                f"{scale:g}", "--generate_seed", str(seed),
                "--json_summary_folder", str(out / "summaries"),
-               "--compile_records", str(records)]
+               "--compile_records", str(records), "--ledger", str(LEDGER)]
         out.mkdir()
         t0 = time.time()
         with open(out / "power.log", "w") as log:
@@ -1846,13 +1883,9 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
             tail = (out / "power.log").read_text()[-4000:]
             raise AssertionError(f"power run {run} exited "
                                  f"{proc.returncode}:\n{tail}")
-        with open(out / "time.csv") as f:
-            ms = {r["query"]: int(r["time/milliseconds"])
-                  for r in csv.DictReader(f)}
-        status = {}
-        for p in (out / "summaries").glob("*.json"):
-            s = json.loads(p.read_text())
-            status[s["query"]] = s["queryStatus"][-1]
+        ms = _time_log(out / "time.csv")
+        status = {n: st for n, (st, _f) in
+                  _statuses(out / "summaries").items()}
         side = json.loads((out / "time.csv.metrics.json").read_text())
         counters = side["counters"]
         rows = {q["query"]: q["attrs"].get("result_rows")
@@ -1871,6 +1904,7 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
             captures=counters.get("engine.jit_builds", 0),
             segsum_launches=run_launches, result_rows=rows,
             cold_parts=side["totals"]["cold_queries"],
+            ledger=side["ledger"], sentinel=side["sentinel"]["counts"],
             parent_reserved_bytes=torch.cuda.memory_reserved(),
             wall_s=wall)
         if set(status) != set(parts) or \
@@ -1881,6 +1915,237 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
             raise AssertionError(f"power run {run}: rows differ from the "
                                  f"corpus phase's on {differ}")
     return launches
+
+
+# a replay whose guards fail rediscovers, and the executor says so with a
+# warning, which a report records as a task failure (the JAX engine's too)
+REDISCOVERY = "compiled plan invalidated"
+
+
+def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
+    """The first throughput test, at full size: streams 1 and 2 as two
+    threads over one shared session in this process
+    (``scheduler.run_streams_inproc``, what ``python -m
+    ndstpu_torch.harness.throughput --mode inproc --concurrent 2`` runs),
+    the warehouse generated once at ``scale`` on the card, the power
+    phase's first compile records preloaded and its ledger giving the
+    priors.  One ``throughput`` line: the throughput elapsed (the latest
+    ``Power End Time`` less the earliest ``Power Start Time``), each
+    stream's ``Power Test Time`` and part ms, every part's status (each
+    must be ``Completed``, or ``CompletedWithTaskFailures`` for its
+    rediscovery notice alone, as many as the guards that failed), the
+    overlap report (both streams must have run at once), the sidecar's
+    and the executor's counters (one plan miss for each text the session
+    planned, every text of the streams among them: no text planned
+    twice), the ledger rows, peak bytes and the wall seconds.  Then, on
+    the run's session and on this thread (the streams' captured theirs),
+    every part whose compiled entry recorded ``segsum_decimal`` calls:
+    one replay under ``torch.profiler``, whose launches must be those
+    calls, held against an eager run of its plan (ints, decimals, dates
+    and strings exact, floats within 1e-5 relative, in order where the
+    plan ends in a sort).  Returns the path's launches: the wrapper's in
+    the run, and the profiled replays'."""
+    from ndstpu_torch import obs
+    from ndstpu_torch.engine.plan import fixes_order
+    from ndstpu_torch.engine.sql import normalize_sql_key
+    from ndstpu_torch.harness import scheduler
+    from ndstpu_torch.harness.power import gen_sql_from_stream
+    out = POWER_DIR / "throughput"
+    out.mkdir()
+    streams = ("1", "2")
+    texts = {sid: gen_sql_from_stream(str(POWER_DIR / f"query_{sid}.sql"))
+             for sid in streams}
+    cmd = ["python", "-m", "ndstpu_torch.harness.power",
+           str(POWER_DIR / "query_{}.sql"), "-", str(out / "time_{}.csv"),
+           "--generate", f"{scale:g}", "--generate_seed", str(seed),
+           "--json_summary_folder", str(out / "summaries_{}"),
+           "--compile_records", str(POWER_DIR / "compile_records.pkl"),
+           "--ledger", str(LEDGER)]
+    obs.reset()
+    torch.cuda.reset_peak_memory_stats()
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
+    t0 = time.time()
+    run = scheduler.run_streams_inproc(
+        list(streams), cmd, concurrent=2,
+        overlap_report=str(out / "overlap.json"))
+    wall = time.time() - t0
+    wrapper = segsum.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    exe = run.session.executor
+    logs = {sid: _time_log(out / f"time_{sid}.csv") for sid in streams}
+    status = {sid: _statuses(out / f"summaries_{sid}") for sid in streams}
+    side = json.loads((out / "overlap.json.metrics.json").read_text())
+    counters = side["counters"]
+    elapsed = max(lg["Power End Time"] for lg in logs.values()) - \
+        min(lg["Power Start Time"] for lg in logs.values())
+    distinct = {normalize_sql_key(sql) for qd in texts.values()
+                for sql in qd.values()}
+    # the texts planned: the streams', and the preloaded records' (stream
+    # 0's renderings)
+    planned = set(run.session._plan_cache)
+    noticed = sum(st == "CompletedWithTaskFailures" for s in status.values()
+                  for st, _f in s.values())
+    say("throughput", card=card, scale=scale, mode="inproc", streams=2,
+        throughput_elapsed_s=elapsed,
+        power_test_ms={sid: lg["Power Test Time"] for sid, lg in logs.items()},
+        load_ms=logs["1"]["CreateTempView all tables (shared)"],
+        part_ms={sid: {n: logs[sid][n] for n in texts[sid] if n in logs[sid]}
+                 for sid in streams},
+        status={sid: {n: st for n, (st, _f) in s.items()}
+                for sid, s in status.items()},
+        rediscovery_notices=noticed,
+        overlap={k: run.overlap[k] for k in (
+            "max_concurrent", "stream_max_concurrent",
+            "total_pairwise_overlap_s", "device_timeline")},
+        errors=run.errors,
+        preloaded=counters.get("harness.compile_records.preloaded", 0),
+        discoveries=counters.get("engine.discoveries", 0),
+        compiled_hit=counters.get("engine.cache.compiled.hit", 0),
+        compiled_miss=counters.get("engine.cache.compiled.miss", 0),
+        captures=counters.get("engine.jit_builds", 0),
+        plan_miss=counters.get("engine.cache.plan.miss", 0),
+        plan_hit=counters.get("engine.cache.plan.hit", 0),
+        distinct_texts=len(distinct), planned_texts=len(planned),
+        guard_failures=exe.n_guard_failures, evictions=exe.n_evictions,
+        memo_signature_misses=exe.n_memo_sig_misses,
+        oom_retries=exe.n_oom_retries, graph_budget_bytes=exe.graph_budget,
+        held_pool_bytes=exe.pool_bytes(), segsum_launches=wrapper,
+        ledger=side["ledger"], sentinel=side["sentinel"]["counts"],
+        compile_s=side["totals"]["compile_s"],
+        cold_parts=side["totals"]["cold_queries"], peak_bytes=peak,
+        wall_s=wall)
+    if run.rc or run.errors:
+        raise AssertionError(f"throughput: stream errors {run.errors}")
+    for sid in streams:
+        if set(status[sid]) != set(texts[sid]):
+            raise AssertionError(f"throughput stream {sid}: summaries for "
+                                 f"{sorted(status[sid])}")
+        bad = {n: (st, f) for n, (st, f) in status[sid].items()
+               if not (st == "Completed" or (
+                   st == "CompletedWithTaskFailures" and f and
+                   all(REDISCOVERY in m for m in f)))}
+        if bad:
+            raise AssertionError(f"throughput stream {sid}: {bad}")
+    if noticed != exe.n_guard_failures:
+        raise AssertionError(f"throughput: {noticed} rediscovery notices "
+                             f"for {exe.n_guard_failures} guard failures")
+    if run.overlap["stream_max_concurrent"] != 2:
+        raise AssertionError("throughput: the two streams never ran at once")
+    if counters.get("engine.cache.plan.miss", 0) != len(planned) or \
+            not distinct <= planned:
+        raise AssertionError(
+            f"throughput: {counters.get('engine.cache.plan.miss')} plan "
+            f"misses for {len(planned)} texts planned, of which "
+            f"{len(distinct & planned)} of the streams' {len(distinct)}")
+
+    # the kernel's parts, replayed on this thread
+    t1 = time.time()
+    sess, checked, wrong = run.session, {}, []
+    for sid in streams:
+        for name, sql in texts[sid].items():
+            cp = sess.compiled_plan(sql)
+            if cp is None or not cp.kernel_calls:
+                continue
+            # a replay (or the capture of an evicted graph, or the
+            # rediscovery of the other stream's binding), so that the
+            # profiled run replays
+            sess.sql(sql)
+            cp = sess.compiled_plan(sql)
+            with segsum.counting_replays() as seen:
+                got = sess.sql(sql)
+            if seen["launches"] != cp.kernel_calls:
+                raise AssertionError(
+                    f"throughput {sid}:{name}: the profiler saw "
+                    f"{seen['launches']} segsum_decimal launches in a replay "
+                    f"of a graph holding {cp.kernel_calls}")
+            plan = sess.plan(sql)[0]
+            diff = first_difference(
+                engine_rows(exe.execute_to_host(plan), nulls=True),
+                engine_rows(got, nulls=True), fixes_order(plan))
+            checked[f"{sid}:{name}"] = seen["launches"]
+            if diff is not None:
+                wrong.append({"part": f"{sid}:{name}", **diff})
+    say("throughput kernel parts", parts=checked, differ=wrong,
+        replay_launches_profiled=segsum.REPLAY_LAUNCHES,
+        seconds=time.time() - t1, card=card)
+    if not checked:
+        raise AssertionError("throughput: no compiled entry holds a "
+                             "segsum_decimal call")
+    if wrong:
+        raise AssertionError(f"throughput: replays differ from eager runs: "
+                             f"{wrong}")
+    return wrapper, segsum.REPLAY_LAUNCHES
+
+
+# the process mode's parts: two that call segsum_decimal at the check
+# scale (q5, q80) beside four that do not need to
+PROCESS_PARTS = ("query3", "query5", "query14_part1", "query42", "query80",
+                 "query98")
+
+
+def throughput_processes(scale: float, seed: int, card: str) -> int:
+    """The throughput test in the spec's shape: ``python -m
+    ndstpu_torch.harness.throughput 1,2 --concurrent 1`` as a subprocess,
+    one power process a stream, each generating the warehouse at
+    ``scale`` on the card and running ``PROCESS_PARTS``; the file lock
+    lets one stream at a time run a query.  It must exit 0 with both time
+    logs, every part ``Completed``, ``segsum_decimal`` launched in each
+    stream's process (its sidecar's counter) and an overlap report of one
+    admission slot and two streams that exited 0.  One ``throughput
+    processes`` line, with the graph budget each process set.  Returns
+    the launches."""
+    out = POWER_DIR / "throughput_process"
+    out.mkdir()
+    cmd = [sys.executable, "-m", "ndstpu_torch.harness.throughput", "1,2",
+           "--concurrent", "1", "--overlap_report", str(out / "overlap.json"),
+           "--", sys.executable, "-m", "ndstpu_torch.harness.power",
+           str(POWER_DIR / "query_{}.sql"), "-", str(out / "time_{}.csv"),
+           "--generate", f"{scale:g}", "--generate_seed", str(seed),
+           "--json_summary_folder", str(out / "summaries_{}"),
+           "--sub_queries", ",".join(PROCESS_PARTS), "--ledger", "none"]
+    t0 = time.time()
+    with open(out / "throughput.log", "w") as log:
+        proc = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT,
+                              timeout=600)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        tail = (out / "throughput.log").read_text()[-4000:]
+        raise AssertionError(f"throughput processes exited "
+                             f"{proc.returncode}:\n{tail}")
+    streams = ("1", "2")
+    logs = {sid: _time_log(out / f"time_{sid}.csv") for sid in streams}
+    status = {sid: {n: st for n, (st, _f) in
+                    _statuses(out / f"summaries_{sid}").items()}
+              for sid in streams}
+    sides = {sid: json.loads((out / f"time_{sid}.csv.metrics.json")
+                             .read_text()) for sid in streams}
+    launches = {sid: sides[sid]["counters"].get(
+        "kernel.segsum_decimal.launches", 0) for sid in streams}
+    overlap = json.loads((out / "overlap.json").read_text())
+    say("throughput processes", card=card, scale=scale, mode="process",
+        streams=2, parts=list(PROCESS_PARTS),
+        throughput_elapsed_s=max(lg["Power End Time"] for lg in logs.values())
+        - min(lg["Power Start Time"] for lg in logs.values()),
+        power_test_ms={sid: lg["Power Test Time"] for sid, lg in logs.items()},
+        part_ms={sid: {n: logs[sid][n] for n in PROCESS_PARTS}
+                 for sid in streams},
+        status=status, segsum_launches=launches,
+        graph_budget_bytes={sid: sides[sid]["gauges"].get(
+            "engine.graph_budget_bytes") for sid in streams},
+        admission_slots=overlap["admission_slots"],
+        returncodes={r["stream"]: r["returncode"]
+                     for r in overlap["streams"]},
+        stream_max_concurrent=overlap["stream_max_concurrent"], wall_s=wall)
+    for sid in streams:
+        if status[sid] != {n: "Completed" for n in PROCESS_PARTS}:
+            raise AssertionError(f"throughput process {sid}: {status[sid]}")
+        if not launches[sid]:
+            raise AssertionError(f"throughput process {sid} launched no "
+                                 f"segsum_decimal")
+    if overlap["admission_slots"] != 1 or \
+            sorted(r["returncode"] for r in overlap["streams"]) != [0, 0]:
+        raise AssertionError(f"throughput processes: overlap {overlap}")
+    return sum(launches.values())
 
 
 # ---------------------------------------------------------------------------
@@ -1967,16 +2232,14 @@ def main() -> int:
         cold = (time.perf_counter() - t1) * 1e3
         cold_syncs = exe.n_syncs
         peak = torch.cuda.max_memory_allocated()
-        warm = []
-        for _ in range(3):
-            t1 = time.perf_counter()
-            again = sess.sql(sql)
-            torch.cuda.synchronize()
-            warm.append((time.perf_counter() - t1) * 1e3)
-            diff = torchexec.results_differ(out, again)
-            if diff is not None:
-                raise AssertionError(f"{q}: a replay differs from its "
-                                     f"discovery run: {diff}")
+        t1 = time.perf_counter()
+        again = sess.sql(sql)
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t1) * 1e3
+        diff = torchexec.results_differ(out, again)
+        if diff is not None:
+            raise AssertionError(f"{q}: a replay differs from its "
+                                 f"discovery run: {diff}")
         cp = sess.compiled_plan(sql)
         profiled = profiled_replay(segsum, sess, sql, cp, q)
         got = engine_rows(out, nulls)
@@ -1985,7 +2248,7 @@ def main() -> int:
             raise AssertionError(f"{q} routes sums to segsum_decimal but "
                                  f"launched it no time")
         return got, dict(
-            query=q, cold_ms=cold, warm_median_ms=statistics.median(warm),
+            query=q, cold_ms=cold, warm_ms=warm,
             rows=len(got), peak_bytes=peak, pool_bytes=cp.pool_bytes,
             discovery_peak_bytes=cp.peak_bytes, allocated_before=allocated,
             held_pool_bytes_before=held,
@@ -2159,6 +2422,19 @@ def main() -> int:
     if power_launches == 0:
         raise AssertionError("the power runs launched no segsum_decimal")
 
+    # main path 8: the throughput test, two streams over one session in
+    # this process at the corpus scale; then its process mode, a power
+    # process a stream, at the check scale (two warehouses and their
+    # graphs at the corpus scale would not fit one card)
+    throughput_launches = throughput_run(segsum, args.corpus_scale,
+                                         args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if sum(throughput_launches) == 0:
+        raise AssertionError("the throughput run launched no segsum_decimal")
+    process_launches = throughput_processes(args.check_scale, args.seed,
+                                            card)
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "segsum_decimal", "route": "cuda",
@@ -2167,7 +2443,8 @@ def main() -> int:
         "tpu_kernel": "ndstpu/ops/segsum.py::_limb_kernel",
         "launches": sum(family_launches) + bench_launches[0] +
         sum(store_launches) + sum(window_launches) + sum(setop_launches) +
-        sum(corpus_launches) + power_launches,
+        sum(corpus_launches) + power_launches + sum(throughput_launches) +
+        process_launches,
         "launches_by_path": {"q3 family": sum(family_launches),
                              "bench": bench_launches[0],
                              "store slice": sum(store_launches),
@@ -2175,13 +2452,16 @@ def main() -> int:
                              "set operations and distinct":
                              sum(setop_launches),
                              "corpus": sum(corpus_launches),
-                             "power run": power_launches},
+                             "power run": power_launches,
+                             "throughput": sum(throughput_launches),
+                             "throughput processes": process_launches},
         "replay_launches_by_path": {
             "q3 family": family_launches[1], "bench": 0,
             "store slice": store_launches[1],
             "store window reports": window_launches[1],
             "set operations and distinct": setop_launches[1],
-            "corpus": corpus_launches[1]},
+            "corpus": corpus_launches[1],
+            "throughput": throughput_launches[1]},
         "max_abs_err": k["max_abs_err"],
         "ms": k["call_ms"], "kernel_ms": k["call_ms"],
         "device_ms": k["device_ms"],

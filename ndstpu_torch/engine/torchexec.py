@@ -3777,6 +3777,7 @@ class CompilingExecutor(TorchExecutor):
         torch.cuda.empty_cache()
         if self.graph_budget is None:
             self.graph_budget = torch.cuda.mem_get_info(self.device)[0] // 2
+            obs.set_gauge("engine.graph_budget_bytes", self.graph_budget)
         while self._graphs:
             free = torch.cuda.mem_get_info(self.device)[0]
             if self.pool_bytes() + need <= self.graph_budget and \

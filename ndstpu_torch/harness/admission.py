@@ -1,8 +1,6 @@
 """Cross-process device admission control for concurrent streams.
 
-The JAX package's ``ndstpu/harness/admission.py`` without its
-in-process variant (``InprocAdmission``, which the in-process throughput
-scheduler uses, a later slice of the port).
+A copy of the JAX package's ``ndstpu/harness/admission.py``.
 
 The reference bounds intra-device concurrency with
 ``spark.rapids.sql.concurrentGpuTasks`` (power_run_gpu.template:21) while
@@ -11,6 +9,8 @@ concurrent power-run processes share one card, so an unbounded fan-out
 just queues work behind each other and inflates every stream's tail
 latency: a file-lock semaphore in a shared directory grants at most
 ``slots`` streams device access at a time, acquired around each query.
+The in-process throughput scheduler's stream threads take the same
+``slots`` through :class:`InprocAdmission`, a plain semaphore.
 
 Locks are ``flock``-based so a crashed stream releases its slot when the
 OS closes its file descriptors — no stale-lock cleanup needed.
@@ -79,6 +79,68 @@ class DeviceAdmission:
         for fd in self._fds.values():
             os.close(fd)
         self._fds = {}
+
+
+class InprocAdmission:
+    """In-process ``slots`` semantics of :class:`DeviceAdmission` for
+    the inproc throughput scheduler (ndstpu_torch/harness/scheduler.py): the
+    stream workers are threads in ONE process, so a plain semaphore
+    replaces the lock files.  Tracks the observed concurrency peak and
+    per-acquisition device intervals — the committed evidence that at
+    most ``slots`` queries held the device at once."""
+
+    def __init__(self, slots: int):
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        import threading
+        self.slots = slots
+        self._sem = threading.Semaphore(slots)
+        self._mu = threading.Lock()
+        self._tl = threading.local()
+        self._active = 0
+        self.max_active = 0
+        self.wait_s_total = 0.0
+        self.intervals = []  # (t_acquired, t_released) epoch pairs
+
+    def acquire(self) -> int:
+        t0 = time.time()
+        self._sem.acquire()
+        now = time.time()
+        with self._mu:
+            self._active += 1
+            self.max_active = max(self.max_active, self._active)
+            self.wait_s_total += now - t0
+        self._tl.t0 = now
+        return 0
+
+    def release(self) -> None:
+        t0 = getattr(self._tl, "t0", None)
+        self._tl.t0 = None
+        with self._mu:
+            self._active -= 1
+            if t0 is not None:
+                self.intervals.append((t0, time.time()))
+        self._sem.release()
+
+    @contextlib.contextmanager
+    def slot(self):
+        self.acquire()
+        try:
+            yield
+        finally:
+            self.release()
+
+    def device_timeline(self) -> dict:
+        """Admission-level overlap evidence for the overlap report."""
+        with self._mu:
+            ivs = list(self.intervals)
+        return {
+            "slots": self.slots,
+            "max_concurrent": self.max_active,
+            "gated_queries": len(ivs),
+            "busy_s_total": round(sum(b - a for a, b in ivs), 3),
+            "wait_s_total": round(self.wait_s_total, 3),
+        }
 
 
 def from_env() -> Optional[DeviceAdmission]:

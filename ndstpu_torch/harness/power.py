@@ -41,11 +41,18 @@ Without ``--output_prefix`` a query ends with its result on the host
 Parquet or CSV through pyarrow, and without pyarrow the run refuses to
 start.
 
-Left for later slices of the port, and not accepted here: ``--ledger``
-(the run ledger and the regression sentinel; the sidecar's ``ledger`` and
-``sentinel`` are null), ``--static_check``, ``--xla_cache_dir`` (the XLA
-compile cache has no counterpart) and ``--floats``.  ``jax.*`` engine
-properties are recorded in the summaries and applied to nothing.
+The run ledger (``--ledger``, default ``$NDSTPU_LEDGER`` or
+``.bench_cache/ledger.jsonl``, ``none`` to turn it off;
+:mod:`ndstpu_torch.obs.ledger`) gives each query its prior, which orders a
+budget cut and the heartbeat's ETA; after the stream the regression
+sentinel (:mod:`ndstpu_torch.obs.sentinel`) judges every query against the
+ledger as it stood before the run, the run's rows are appended under the
+engine ``torch-<device type>``, and the sidecar carries both.
+
+Left for later slices of the port, and not accepted here:
+``--static_check``, ``--xla_cache_dir`` (the XLA compile cache has no
+counterpart) and ``--floats``.  ``jax.*`` engine properties are recorded in
+the summaries and applied to nothing.
 """
 
 from __future__ import annotations
@@ -68,6 +75,8 @@ from ndstpu_torch.engine.session import Session
 from ndstpu_torch.harness import admission, progress
 from ndstpu_torch.harness.report import BenchReport
 from ndstpu_torch.io import atomic, loader
+from ndstpu_torch.obs import ledger as ledger_mod
+from ndstpu_torch.obs import sentinel
 from ndstpu_torch.queries.statements import _sql_statements
 
 # One `-- start query N in stream M using template queryX.tpl` marker
@@ -343,6 +352,67 @@ def _load(args, device):
     return catalog
 
 
+def ledger_engine(device) -> str:
+    """The engine name of the port's ledger rows: ``torch-`` and the
+    device type.  The JAX package's engines are ``tpu``, ``tpu-spmd``
+    and ``cpu``, so neither package takes the other's priors."""
+    return f"torch-{device.type}"
+
+
+def open_ledger(path: Optional[str]):
+    """The run ledger at ``path`` (None: ``ledger.default_path()``;
+    ``none``: no ledger), or None; a corrupt ledger warns and never
+    fails the run."""
+    if path is None:
+        path = ledger_mod.default_path()
+    if not path or path.lower() == "none":
+        return None
+    try:
+        return ledger_mod.Ledger(path)
+    except Exception as e:  # noqa: BLE001 — a bad ledger must not stop a run
+        print(f"WARNING: ledger {path} not loaded: {e}")
+        return None
+
+
+def record_run(led, qsums: List[dict], *, engine: str, scale_factor,
+               seed, source: str, extra: Dict[str, object]):
+    """The regression sentinel's verdicts on ``qsums`` (the tracer's
+    per-query summaries of the queries a run executed) against the ledger
+    as it stands, then one ledger row for each query that did not fail:
+    ``(ledger block, sentinel block)`` for the sidecar, both None without
+    a ledger or a query.  The port reads no lake, so no row carries a
+    snapshot epoch.  ``extra`` goes into every row's ``extra``, with the
+    query's ``stream``, ``retry_attempts`` and ``result_rows`` where the
+    run recorded them.  A failure warns and never fails the run."""
+    if led is None or not qsums:
+        return None, None
+    try:
+        verdicts = sentinel.classify_run(qsums, led, engine=engine,
+                                         scale_factor=scale_factor)
+        entries = []
+        for q in qsums:
+            attrs = q.get("attrs") or {}
+            if attrs.get("error"):
+                continue
+            row_extra = dict(extra)
+            for k in ("stream", "retry_attempts", "result_rows"):
+                if attrs.get(k):
+                    row_extra.setdefault(k, attrs[k])
+            entries.append(ledger_mod.make_entry(
+                q["query"], q["wall_s"], q["compile_s"], q["execute_s"],
+                engine=engine, scale_factor=scale_factor, seed=seed,
+                source=source,
+                extra={k: v for k, v in row_extra.items() if v}))
+        led.append(entries)
+        if verdicts["regressions"]:
+            print(f"WARNING: sentinel flagged warm-path regressions: "
+                  f"{verdicts['regressions']}")
+        return {"path": led.path, "appended": len(entries)}, verdicts
+    except Exception as e:  # noqa: BLE001 — the ledger never fails a run
+        print(f"WARNING: ledger/sentinel update failed: {e}")
+        return None, None
+
+
 def run_query_stream(args) -> None:
     from ndstpu_torch.engine.torchexec import resolve_device
 
@@ -460,12 +530,20 @@ def run_query_stream(args) -> None:
     stream_name = os.path.splitext(
         os.path.basename(args.query_stream_file))[0]
 
-    # budget heartbeat: with no run ledger yet, every query's prior is
-    # the default cost
+    # run ledger + budget heartbeat: priors feed the per-query ETA and
+    # the cheapest-first deadline degradation; the ledger itself is
+    # appended to after the stream.  The port discovers on either device,
+    # so a query's first run is cold unless compile records exist
+    led = open_ledger(args.ledger)
+    engine = ledger_engine(device)
+    expected_warmth = "warm" if (args.compile_records and os.path.exists(
+        args.compile_records)) else "cold"
     budget_s = args.budget_s if args.budget_s and args.budget_s > 0 \
         else None
-    queue = progress.BudgetedQueue(list(query_dict), budget_s,
-                                   progress.ledger_estimator(None),
+    est = progress.ledger_estimator(led, engine=engine,
+                                    scale_factor=args.scale_factor,
+                                    warmth=expected_warmth)
+    queue = progress.BudgetedQueue(list(query_dict), budget_s, est,
                                    phase="power")
     hb = progress.Heartbeat("power", total=len(query_dict),
                             budget_s=budget_s)
@@ -570,6 +648,15 @@ def run_query_stream(args) -> None:
         trace_dir = os.environ.get("NDSTPU_TRACE_DIR") or \
             (os.path.dirname(args.time_log) or ".")
         base = os.path.basename(args.time_log)
+        # sentinel verdicts are judged against the pre-run ledger, then
+        # this run's measurements are appended so the next run has priors
+        executed = set(res["executed"])
+        ledger_block, sentinel_block = record_run(
+            led, [q for q in obs.tracer().query_summaries()
+                  if q["query"] in executed],
+            engine=engine, scale_factor=args.scale_factor,
+            seed=args.run_seed, source=base,
+            extra={"stream": stream_name})
         try:
             paths = obs.export_run(trace_dir, base)
             sidecar = args.time_log + ".metrics.json"
@@ -586,9 +673,8 @@ def run_query_stream(args) -> None:
                     "faultTaxonomy": res["taxonomy"],
                     "quarantined": res["quarantined"] or None,
                     "resumed": res["resumed"] or None,
-                    # the run ledger and its sentinel are a later slice
-                    "ledger": None,
-                    "sentinel": None,
+                    "ledger": ledger_block,
+                    "sentinel": sentinel_block,
                 }), f, indent=2)
             print(f"====== Trace: {paths['jsonl']} | {paths['chrome']} "
                   f"| {sidecar} ======")
@@ -644,12 +730,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "projected overrun the run degrades "
                         "explicitly: queries that cannot fit get a "
                         "per-query partial_reason in the metrics sidecar")
+    p.add_argument("--ledger",
+                   help="run-ledger JSONL path (default "
+                        "$NDSTPU_LEDGER or .bench_cache/ledger.jsonl; "
+                        "'none' disables). Serves ETA priors and "
+                        "regression-sentinel baselines; executed "
+                        "queries are appended after the run")
     p.add_argument("--scale_factor", default="unknown",
-                   help="scale factor for the resume fingerprint (set "
-                        "by --generate)")
+                   help="scale factor for the resume and ledger "
+                        "fingerprints (set by --generate)")
     p.add_argument("--run_seed", default="unknown",
-                   help="seed for the resume fingerprint (set by "
-                        "--generate)")
+                   help="seed for the resume and ledger fingerprints "
+                        "(set by --generate)")
     p.add_argument("--resume", action="store_true",
                    help="crash-safe resume: replay the per-query "
                         "progress journal (<time_log>.progress.jsonl) "
@@ -661,7 +753,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The command line's arguments, checked: a warehouse directory, or
+    ``-`` with ``--generate SF``, which also sets the fingerprints' scale
+    factor and seed."""
     p = build_parser()
     args = p.parse_args(argv)
     if (args.generate is None) != (args.input_prefix != "-"):
@@ -669,6 +764,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.generate is not None:
         args.scale_factor = f"{args.generate:g}"
         args.run_seed = str(args.generate_seed)
+    return args
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
     # a run's spans and counters start from nothing (the sidecar holds
     # this run's alone, also when a process runs more than one)
     obs.reset()

@@ -1,7 +1,8 @@
 """Per-query benchmark report (JSON summary contract).
 
 A copy of the JAX package's ``ndstpu/harness/report.py``, its imports
-changed and ``engineVersion`` this package's.
+changed, ``engineVersion`` this package's, and its warning collector
+made safe for concurrent streams (:class:`_WarningSinks`).
 
 Mirrors the reference's PysparkBenchReport (PysparkBenchReport.py:42-122):
 captures env vars (TOKEN/SECRET/PASSWORD redacted), engine configuration and
@@ -11,13 +12,18 @@ Failed with exception strings, and writes `{prefix}-{query}-{startTime}.json`
 
 The reference's JVM task-failure listener maps here to an in-process warning
 collector: engine warnings during a query (e.g. schema coercion fallbacks)
-mark the run CompletedWithTaskFailures.
+mark the run CompletedWithTaskFailures.  The throughput run's stream
+threads each hold a report open at once; ``warnings.catch_warnings`` swaps
+process-wide state and restores it in whatever order the threads leave,
+so there each report records the warnings of its own thread.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
+import threading
 import time
 import traceback
 import warnings
@@ -27,6 +33,61 @@ import ndstpu_torch
 from ndstpu_torch import obs
 from ndstpu_torch.faults import taxonomy
 from ndstpu_torch.io import atomic
+
+
+class _WarningSinks:
+    """The warnings raised while reports are open, each recorded in the
+    list of the report its thread opened.  One process-wide
+    ``catch_warnings`` (every warning shown, none deduplicated) stays
+    entered while any report is open.  A warning from a thread with no
+    report of its own goes to the one open report (the power run's
+    watchdog thread runs the query of the report its caller opened), and
+    when several are open to stderr, since no report can claim it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # thread ident -> the recorded warnings of its open reports,
+        # innermost last
+        self._sinks: dict = {}
+        self._saved = None
+
+    def open(self) -> list:
+        records: list = []
+        with self._lock:
+            if not self._sinks:
+                self._saved = warnings.catch_warnings()
+                self._saved.__enter__()
+                warnings.simplefilter("always")
+                warnings.showwarning = self._show
+            self._sinks.setdefault(threading.get_ident(), []).append(records)
+        return records
+
+    def close(self) -> None:
+        with self._lock:
+            tid = threading.get_ident()
+            self._sinks[tid].pop()
+            if not self._sinks[tid]:
+                del self._sinks[tid]
+            if not self._sinks:
+                self._saved.__exit__(None, None, None)
+                self._saved = None
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        msg = warnings.WarningMessage(message, category, filename, lineno,
+                                      file, line)
+        with self._lock:
+            stack = self._sinks.get(threading.get_ident())
+            if stack is None and len(self._sinks) == 1:
+                (stack,) = self._sinks.values()
+            if stack is not None:
+                stack[-1].append(msg)
+                return
+        sys.stderr.write(warnings.formatwarning(message, category, filename,
+                                                lineno, line))
+
+
+_WARNINGS = _WarningSinks()
 
 
 class BenchReport:
@@ -79,10 +140,12 @@ class BenchReport:
         qspan = obs.span(query_name or getattr(fn, "__name__", "query"),
                          cat="query", collect=True, **(span_attrs or {}))
         try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
+            caught = _WARNINGS.open()
+            try:
                 with qspan:
                     fn(*args)
+            finally:
+                _WARNINGS.close()
             end_time = int(time.time() * 1000)
             if caught:
                 self.summary["queryStatus"].append(
