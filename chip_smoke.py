@@ -100,11 +100,12 @@ non-zero:
     but did not in phase 10 fails the script;
 12. power: with this process holding no table or graph, streams 0, 1
     and 2 written by ``python -m ndstpu_torch.queries.streamgen`` (stream
-    0's parts must be the corpus's renderings) and stream 0 run twice by
-    ``python -m ndstpu_torch.harness.power``, each run generating the
-    warehouse at ``CORPUS_SCALE`` on the card and keeping the run ledger
-    ``LEDGER``, new each script run: cold, saving compile records, then
-    preloading them.  One line a run: its time log (``Power Test Time``,
+    0's parts must be the corpus's renderings) and stream 0 run once by
+    ``python -m ndstpu_torch.harness.power``, generating the warehouse at
+    ``CORPUS_SCALE`` on the card and keeping the run ledger ``LEDGER``,
+    new each script run: cold, saving compile records (no second run
+    preloads them, a depth cut below; phase 13 preloads them).
+    One line: its time log (``Power Test Time``,
     ``Total Time``, the load and preload rows, each part's ms), every
     part's status (each must be ``Completed``) and rows (each must equal
     phase 11's), the metrics sidecar's discoveries, compiled-plan hits
@@ -130,9 +131,32 @@ non-zero:
     ndstpu_torch.harness.throughput --concurrent 1``, a power process a
     stream, each generating the warehouse at ``CHECK_SCALE``: it must
     exit 0 with every part ``Completed``, ``segsum_decimal`` launched in
-    each process, and one admission slot.
+    each process, and one admission slot;
+14. maintenance: (a) at ``CHECK_SCALE`` the whole warehouse and refresh
+    set 1 generated on the card and copied to the host; q3, q5 and q80
+    run on the card (captured); the 11 data-maintenance functions
+    (``ndstpu_torch.harness.maintenance``'s helpers, each under a
+    ``BenchReport``) on the card and on the CPU; each of the seven fact
+    tables must then hold the same rows on both (exactly, as
+    multisets), LF_CR, LF_SR and LF_WR must have failed on both (as in
+    the JAX package) and the rest completed, and q3, q5 and q80 must
+    rediscover on the card (their tables changed) and equal the CPU's
+    results, each profiled replay's ``segsum_decimal`` launches its
+    graph's calls; then on a session of its own every call of the three,
+    discovery's and the replayed graph's, held bit-exact against the
+    plain version.  (b) At ``CORPUS_SCALE``, ``python -m
+    ndstpu_torch.harness.maintenance - - <log> --generate SF --update 1``
+    in a process of its own: its time log must have the 11 function rows
+    and ``Data Maintenance Time``, its summaries the same three
+    ``Failed``; one line with each function's ms and status, the rows
+    each changed and the peak device memory.  Then
+    ``maintenance_counts`` in another process: before each DELETE a
+    ``count(*)`` of its WHERE, before each INSERT one of its SELECT, each
+    equal to the rows the statement removed or added, and at the end the
+    device bytes held beyond the live tables (under 1 GiB: no replaced
+    table outlives its last user).
 
-Phases 5, 6, 7, 8, 9, 11, 12 and 13 are the main paths: the kernel
+Phases 5, 6, 7, 8, 9, 11, 12, 13 and 14 (a) are the main paths: the kernel
 launch counts (``segsum.LAUNCHES``, the wrapper's own, and
 ``segsum.REPLAY_LAUNCHES``, those of graph replays, counted by
 ``torch.profiler`` from the card's kernel events in the replays it
@@ -153,9 +177,12 @@ times eager runs); the corpus check runs at SF 0.5, not 1 (27 s); the
 corpus phase replays each part once warm, not three times (about 73 s),
 and profiles only the replays of the parts whose graphs call the kernel;
 the check runs each part once on the CPU, not twice (about 28 s: the tests
-run the CPU replay of every part); and phases 5-9 replay each query once
-warm, not three times.  The widths, the scales of the corpus, power and
-throughput phases and the streams are whole.
+run the CPU replay of every part); phases 5-9 replay each query once
+warm, not three times; and, to pay for the maintenance phase (about 100 s
+on an H100), the power phase runs stream 0 once, cold, not a second time
+preloading the first run's records (about 100 s; phase 13 preloads
+them).  The widths, the scales of the corpus, power, throughput and
+maintenance phases and the streams are whole.
 """
 
 from __future__ import annotations
@@ -1537,7 +1564,7 @@ def segsum_calls(segsum, sess, sql, keep=None, largest=False) -> tuple:
 
 def forget(sess, sql) -> None:
     """Drop ``sql``'s compiled plan, so that its next run starts cold."""
-    sess.executor.forget(sess.canonical_key(sql))
+    sess.forget(sql)
 
 
 def descale_check(seed: int, n: int = 1 << 22) -> None:
@@ -1840,15 +1867,15 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
     rendered by ``python -m ndstpu_torch.queries.streamgen`` (stream 0's
     parts must be the corpus's renderings; the throughput phase runs 1
     and 2), then ``python -m ndstpu_torch.harness.power`` on stream 0
-    twice, each generating the warehouse at ``scale`` on the card: cold,
-    writing compile records, then preloading them, each with the run
-    ledger ``LEDGER``, new in this script run (the first run appends cold
-    rows, the second is judged against them).  One ``power`` line a run:
+    once, generating the warehouse at ``scale`` on the card: cold,
+    writing compile records, with the run ledger ``LEDGER``, new in this
+    script run (the run appends cold rows; the throughput phase preloads
+    the records and takes the rows as priors).  One ``power`` line:
     its time log's rows, every part's status (each must be ``Completed``)
     and rows (each must equal the corpus phase's at the same scale), the
     sidecar's counters, ledger rows and sentinel verdicts, the wall
-    seconds.  Returns the two runs' ``segsum_decimal`` launches (the
-    sidecars' counter: the wrapper's own, in discovery)."""
+    seconds.  Returns the run's ``segsum_decimal`` launches (the
+    sidecar's counter: the wrapper's own, in discovery)."""
     import shutil
     from ndstpu_torch.harness.power import gen_sql_from_stream
     from ndstpu_torch.queries import corpus
@@ -1866,7 +1893,7 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
                              "renderings")
     records = POWER_DIR / "compile_records.pkl"
     launches = 0
-    for run in (1, 2):
+    for run in (1,):
         out = POWER_DIR / f"run{run}"
         cmd = [sys.executable, "-m", "ndstpu_torch.harness.power",
                str(stream), "-", str(out / "time.csv"), "--generate",
@@ -2149,6 +2176,327 @@ def throughput_processes(scale: float, seed: int, card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+
+
+# the queries held before and after maintenance: q5 and q80 reach
+# segsum_decimal
+DM_PARTS = ("query3", "query5", "query80")
+DM_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dm"
+# the functions that fail in the JAX package (planner.py:257, their
+# left join time_dim on t_time = 43200) and in the port alike
+DM_FAILING = ("LF_CR", "LF_SR", "LF_WR")
+
+
+def sorted_columns(table) -> list:
+    """A table's columns as host arrays (each value, its validity) in
+    one order of its rows, the lexicographic one: two tables hold the
+    same multiset of rows exactly when these are equal.  String codes
+    become their values' ranks, so that dictionaries may differ."""
+    keys = []
+    for c in table.columns.values():
+        data = c.data.cpu().numpy() if isinstance(c.data, torch.Tensor) \
+            else np.asarray(c.data)
+        valid = np.ones(len(data), bool) if c.valid is None else (
+            c.valid.cpu().numpy() if isinstance(c.valid, torch.Tensor)
+            else np.asarray(c.valid))
+        if c.dictionary is not None:
+            d = c.dictionary.astype(str)
+            ranks = np.argsort(np.argsort(d, kind="stable"), kind="stable")
+            data = np.where(valid & (data >= 0),
+                            ranks[np.clip(data, 0, max(len(d) - 1, 0))]
+                            if len(d) else 0, -1)
+        keys += [np.where(valid, data, 0), valid]
+    if not keys or not len(keys[0]):
+        return keys
+    order = np.lexsort(keys[::-1])
+    return [k[order] for k in keys]
+
+
+def maintenance_check(segsum, scale: float, seed: int, card: str) -> tuple:
+    """Data maintenance at ``scale`` on the card against the CPU: the
+    warehouse and refresh set 1 generated on the card and copied to the
+    host; q3, q5 and q80 run on the card before maintenance, so that
+    their graphs are captured; the 11 functions through the maintenance
+    module's helpers on each device (statuses as ``BenchReport`` records
+    them); then each of the seven fact tables must hold the same rows on
+    both (as multisets, exactly), the same three functions must have
+    failed, and the three queries must run again on the card through a
+    rediscovery (the catalog versions changed: never a replay of the
+    stale graph) and equal the CPU's results.  The launch counts are zeroed
+    just before the card's maintenance and read after the queries' second
+    runs (with one profiled replay each, whose launches must be its
+    graph's calls); then on a session of their own every
+    ``segsum_decimal`` call of the three, discovery's and the replayed
+    graph's, is held bit-exact against the plain version.  Returns the
+    (wrapper, replay) launches and the largest error."""
+    from ndstpu_torch import datagen
+    from ndstpu_torch.engine.plan import fixes_order
+    from ndstpu_torch.engine.session import Session
+    from ndstpu_torch.harness import maintenance as dm
+    from ndstpu_torch.harness.report import BenchReport
+    from ndstpu_torch.queries import corpus
+    t0 = time.time()
+    cat = datagen.generate(scale, seed, "cuda")
+    for name, t in datagen.generate_refresh(scale, 1, seed, "cuda").items():
+        cat.register(name, t)
+    torch.cuda.synchronize()
+    host = datagen.move(cat, "cpu")
+    say("maintenance check data", scale=scale, seconds=time.time() - t0,
+        device_bytes=torch.cuda.memory_allocated())
+    sql = dict(corpus())
+    on_card, on_cpu = Session(cat, device="cuda"), Session(host, device="cpu")
+    exe = on_card.executor
+    for q in DM_PARTS:
+        on_card.sql(sql[q])
+        on_card.sql(sql[q])
+    held = len(exe._graphs)
+
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
+    status, seconds = {}, {}
+    for dev, sess in (("card", on_card), ("cpu", on_cpu)):
+        t1 = time.time()
+        funcs = dm.get_maintenance_queries(sess, dm.DM_FUNCS)
+        status[dev] = {fn: BenchReport().report_on(
+            dm.run_dm_query, sess, stmts, query_name=fn)["queryStatus"][-1]
+            for fn, stmts in funcs.items()}
+        seconds[dev] = time.time() - t1
+    rows = {dev: dm.fact_rows(s) for dev, s in (("card", on_card),
+                                                 ("cpu", on_cpu))}
+    differ = []
+    for table in dm.FACT_TABLES:
+        a = sorted_columns(on_card.catalog.get(table))
+        b = sorted_columns(on_cpu.catalog.get(table))
+        if len(a) != len(b) or any(not np.array_equal(x, y)
+                                   for x, y in zip(a, b)):
+            differ.append(table)
+    failed = {dev: sorted(fn for fn, st in s.items() if st == "Failed")
+              for dev, s in status.items()}
+    say("maintenance check", scale=scale, status=status["card"],
+        cpu_status=status["cpu"], rows=rows["card"], cpu_rows=rows["cpu"],
+        differ=differ, graphs_before=held, graphs_after=len(exe._graphs),
+        card_seconds=seconds["card"], cpu_seconds=seconds["cpu"], card=card)
+    if differ:
+        raise AssertionError(f"maintenance: the card's {differ} differ "
+                             f"from the CPU's")
+    if failed["card"] != failed["cpu"] or \
+            failed["card"] != sorted(DM_FAILING):
+        raise AssertionError(f"maintenance: failed functions {failed}")
+
+    wrong = []
+    for q in DM_PARTS:
+        d0, r0 = exe.n_discoveries, exe.n_replays
+        first = on_card.sql(sql[q])
+        rediscovered = exe.n_discoveries - d0
+        second = on_card.sql(sql[q])
+        cp = on_card.compiled_plan(sql[q])
+        profiled = profiled_replay(segsum, on_card, sql[q], cp, q) \
+            if cp.kernel_calls else 0
+        want = engine_rows(on_cpu.sql(sql[q]), nulls=True)
+        ordered = fixes_order(on_card.plan(sql[q])[0])
+        diffs = {run: first_difference(want, engine_rows(t, nulls=True),
+                                       ordered)
+                 for run, t in (("rediscovery", first), ("replay", second))}
+        diffs = {run: d for run, d in diffs.items() if d is not None}
+        say("maintenance check query", part=q, rows=first.num_rows,
+            discoveries=rediscovered, replays=exe.n_replays - r0,
+            graph_kernel_calls=cp.kernel_calls,
+            replay_segsum_launches_profiled=profiled, equal=not diffs,
+            **({"differences": diffs} if diffs else {}))
+        if diffs or rediscovered != 1:
+            wrong.append(q)
+    launches = (segsum.LAUNCHES, segsum.REPLAY_LAUNCHES)
+    if wrong:
+        raise AssertionError(f"maintenance: {wrong} did not rediscover "
+                             f"after maintenance, or differ from the CPU")
+    if not sum(launches):
+        raise AssertionError("maintenance: q5 and q80 launched no "
+                             "segsum_decimal")
+    checker = Session(cat, device="cuda")
+    err, calls = 0, 0
+    for q in DM_PARTS:
+        _c, n_calls, e, _out = segsum_calls(segsum, checker, sql[q],
+                                            keep=0)
+        err, calls = max(err, e), calls + n_calls
+    say("maintenance check kernels", segsum_launches=launches[0],
+        replay_segsum_launches_profiled=launches[1],
+        checked_graph_calls=calls, max_abs_err=err,
+        seconds=time.time() - t0, card=card)
+    return launches, err
+
+
+def _dm_log(path: Path) -> dict:
+    """A maintenance time log's rows, {query: value}."""
+    import csv
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["application_id", "query", "time/s"]:
+        raise AssertionError(f"maintenance time log header {rows[0]}")
+    return {r[1]: float(r[2]) for r in rows[1:]}
+
+
+def maintenance_counts(scale: float, seed: int) -> int:
+    """The maintenance functions at ``scale`` on the card, each statement
+    held against an independent count: before each DELETE, a
+    ``count(*)`` of its WHERE over its table, which must be the rows it
+    removes; before each INSERT, a ``count(*)`` of its SELECT, which must
+    be the rows it adds (both eager, through ``Session.sql_script``).  One
+    line a statement; then the device bytes held at the end against the
+    bytes of the tables the catalog and the executor hold, so that no
+    replaced table outlives its last user.  Run in a process of its own
+    (``maintenance_runs``)."""
+    import re
+    from ndstpu_torch import datagen
+    from ndstpu_torch.engine.session import Session
+    from ndstpu_torch.harness import maintenance as dm
+    sess = Session(datagen.generate(scale, seed, "cuda"), device="cuda")
+    dm.register_refresh(sess, datagen.generate_refresh(scale, 1, seed,
+                                                       "cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    delete = re.compile(r"^delete\s+from\s+(\w+)\s+where\s+(.*)$",
+                        re.I | re.S)
+    insert = re.compile(r"^insert\s+into\s+(\w+)\s+(select\s.*)$",
+                        re.I | re.S)
+    bad = []
+    for fn, stmts in dm.get_maintenance_queries(sess, dm.DM_FUNCS).items():
+        for i, text in enumerate(stmts):
+            m_del, m_ins = delete.match(text), insert.match(text)
+            want = table = None
+            t1 = time.time()
+            if m_del:
+                table = m_del.group(1)
+                want = sess.sql_script(
+                    f"select count(*) c from {table} where "
+                    f"{m_del.group(2)}")[0].to_rows()[0][0]
+            elif m_ins:
+                table = m_ins.group(1)
+                want = sess.sql_script(
+                    f"select count(*) c from ({m_ins.group(2)}) q"
+                )[0].to_rows()[0][0]
+            count_s = time.time() - t1
+            before = sess.catalog.get(table).num_rows if table else None
+            t1 = time.time()
+            try:
+                sess.sql(text)
+            except Exception as e:  # noqa: BLE001 — recorded, as a report
+                say("maintenance statement", function=fn, statement=i,
+                    error=f"{type(e).__name__}: {e}")
+                break       # a function stops at its first failure
+            torch.cuda.synchronize()
+            run_s = time.time() - t1
+            if table is None:
+                say("maintenance statement", function=fn, statement=i,
+                    kind=text.split()[0].lower(), seconds=run_s)
+                continue
+            after = sess.catalog.get(table).num_rows
+            got = before - after if m_del else after - before
+            say("maintenance statement", function=fn, statement=i,
+                kind="delete" if m_del else "insert", table=table,
+                rows=got, count=want, rows_before=before,
+                rows_after=after, seconds=run_s, count_seconds=count_s)
+            if got != want:
+                bad.append((fn, i))
+    gc.collect()
+    live = set()
+    live_bytes = 0
+
+    def hold(t):
+        nonlocal live_bytes
+        if isinstance(t, torch.Tensor) and t.is_cuda and \
+                t.untyped_storage().data_ptr() not in live:
+            live.add(t.untyped_storage().data_ptr())
+            live_bytes += t.untyped_storage().nbytes()
+    for table in sess.catalog.tables.values():
+        for c in table.columns.values():
+            hold(c.data)
+            hold(c.valid)
+    for _v, dt in sess.executor._device_cache.values():
+        hold(dt.alive)
+        for c in dt.columns.values():
+            hold(c._data)
+            hold(c._valid)
+    allocated = torch.cuda.memory_allocated()
+    say("maintenance memory", allocated_bytes=allocated,
+        live_table_bytes=live_bytes, unheld_bytes=allocated - live_bytes,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        rows=dm.fact_rows(sess))
+    if bad:
+        raise AssertionError(f"maintenance: rows changed differ from the "
+                             f"counts at {bad}")
+    if allocated - live_bytes > 1 << 30:
+        raise AssertionError(f"maintenance: {allocated - live_bytes} device "
+                             f"bytes held beyond the live tables")
+    return 0
+
+
+def maintenance_runs(scale: float, seed: int, card: str) -> None:
+    """The maintenance command line at ``scale``, in a process of its
+    own: ``python -m ndstpu_torch.harness.maintenance - - <log> --generate
+    SF --update 1``.  Its time log must have the 11 function rows and
+    ``Data Maintenance Time``, its summaries LF_CR, LF_SR and LF_WR
+    ``Failed`` and the rest ``Completed``; one line with each function's
+    ms and status, the rows each changed and the peak device memory.
+    Then ``maintenance_counts`` in another process: every statement's
+    rows against its independent count."""
+    import shutil
+    from ndstpu_torch.harness import maintenance as dm
+    shutil.rmtree(DM_DIR, ignore_errors=True)
+    DM_DIR.mkdir(parents=True)
+    log = DM_DIR / "time.csv"
+    cmd = [sys.executable, "-m", "ndstpu_torch.harness.maintenance", "-",
+           "-", str(log), "--generate", f"{scale:g}", "--update", "1",
+           "--generate_seed", str(seed), "--json_summary_folder",
+           str(DM_DIR / "summaries")]
+    t0 = time.time()
+    with open(DM_DIR / "maintenance.log", "w") as out:
+        proc = subprocess.run(cmd, stdout=out, stderr=subprocess.STDOUT,
+                              timeout=600)
+    wall = time.time() - t0
+    text = (DM_DIR / "maintenance.log").read_text()
+    if proc.returncode != 0:
+        raise AssertionError(f"maintenance exited {proc.returncode}:\n"
+                             f"{text[-4000:]}")
+    times = _dm_log(log)
+    status = {n: st for n, (st, _f) in _statuses(DM_DIR / "summaries").items()}
+    changed = {}
+    for line in text.splitlines():
+        if line.startswith("Rows of "):
+            fn, rows = line[len("Rows of "):].split(": ", 1)
+            changed[fn] = json.loads(rows.replace("'", '"'))
+    peak = [int(ln.split()[4]) for ln in text.splitlines()
+            if ln.startswith("====== Peak device memory:")]
+    say("maintenance run", scale=scale,
+        function_ms={fn: times.get(fn) for fn in dm.DM_FUNCS},
+        status=status, rows=changed,
+        data_maintenance_time_s=times.get("Data Maintenance Time"),
+        peak_device_bytes=peak[0] if peak else None, wall_s=wall, card=card)
+    if [n for n in times if n in dm.DM_FUNCS] != dm.DM_FUNCS or \
+            "Data Maintenance Time" not in times:
+        raise AssertionError(f"maintenance time log rows {list(times)}")
+    if status != {fn: "Failed" if fn in DM_FAILING else "Completed"
+                  for fn in dm.DM_FUNCS}:
+        raise AssertionError(f"maintenance statuses {status}")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         f"chip_smoke.maintenance_counts({scale!r}, {seed!r}))"],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=600)
+    (DM_DIR / "counts.log").write_text(proc.stdout + proc.stderr)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    mem = [ln for ln in lines if ln["phase"] == "maintenance memory"]
+    say("maintenance counts", scale=scale, statements=sum(
+        ln["phase"] == "maintenance statement" for ln in lines),
+        checked=[(ln["function"], ln["statement"], ln["rows"], ln["count"])
+                 for ln in lines if "count" in ln],
+        errors=[(ln["function"], ln["error"]) for ln in lines
+                if "error" in ln],
+        memory=mem[0] if mem else None, wall_s=time.time() - t0,
+        card=card)
+    if proc.returncode != 0:
+        raise AssertionError(f"maintenance counts exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
 
 
 def main() -> int:
@@ -2435,6 +2783,17 @@ def main() -> int:
     process_launches = throughput_processes(args.check_scale, args.seed,
                                             card)
 
+    # main path 9: data maintenance, checked against the CPU at the check
+    # scale, then its command line at the corpus scale
+    gc.collect()
+    torch.cuda.empty_cache()
+    dm_launches, dm_err = maintenance_check(segsum, args.check_scale,
+                                            args.seed, card)
+    k["max_abs_err"] = max(k["max_abs_err"], dm_err)
+    gc.collect()
+    torch.cuda.empty_cache()
+    maintenance_runs(args.corpus_scale, args.seed, card)
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "segsum_decimal", "route": "cuda",
@@ -2444,7 +2803,7 @@ def main() -> int:
         "launches": sum(family_launches) + bench_launches[0] +
         sum(store_launches) + sum(window_launches) + sum(setop_launches) +
         sum(corpus_launches) + power_launches + sum(throughput_launches) +
-        process_launches,
+        process_launches + sum(dm_launches),
         "launches_by_path": {"q3 family": sum(family_launches),
                              "bench": bench_launches[0],
                              "store slice": sum(store_launches),
@@ -2454,14 +2813,16 @@ def main() -> int:
                              "corpus": sum(corpus_launches),
                              "power run": power_launches,
                              "throughput": sum(throughput_launches),
-                             "throughput processes": process_launches},
+                             "throughput processes": process_launches,
+                             "maintenance check": sum(dm_launches)},
         "replay_launches_by_path": {
             "q3 family": family_launches[1], "bench": 0,
             "store slice": store_launches[1],
             "store window reports": window_launches[1],
             "set operations and distinct": setop_launches[1],
             "corpus": corpus_launches[1],
-            "throughput": throughput_launches[1]},
+            "throughput": throughput_launches[1],
+            "maintenance check": dm_launches[1]},
         "max_abs_err": k["max_abs_err"],
         "ms": k["call_ms"], "kernel_ms": k["call_ms"],
         "device_ms": k["device_ms"],

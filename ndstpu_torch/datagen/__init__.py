@@ -36,7 +36,9 @@ only the store channel was made, in the same order; every column added
 since draws from a stream of its own (ndsgen keeps its "extra columns
 stream" the same way), so the earlier columns keep their values.
 ``tables=`` or ``columns=`` gets a part of the warehouse; each column has
-the same values whatever else was asked for.
+the same values whatever else was asked for.  :func:`generate_refresh`
+makes the data-maintenance refresh sets
+(:mod:`ndstpu_torch.datagen.refresh`).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import torch
 from ndstpu_torch.datagen import dims, facts
 from ndstpu_torch.datagen.facts import return_parent_rows
 from ndstpu_torch.datagen.model import DISTS, bkey, sizes, stream
+from ndstpu_torch.datagen.refresh import generate_refresh, refresh_sizes
 from ndstpu_torch.engine.columnar import Column, Table
 from ndstpu_torch.io.catalog import Catalog
 from ndstpu_torch.schema import get_schemas
@@ -220,5 +223,5 @@ def move(cat: Catalog, device) -> Catalog:
     return out
 
 
-__all__ = ["COLUMNS", "TABLES", "DISTS", "generate", "move", "sizes", "bkey",
-           "return_parent_rows"]
+__all__ = ["COLUMNS", "TABLES", "DISTS", "generate", "generate_refresh",
+           "move", "refresh_sizes", "sizes", "bkey", "return_parent_rows"]

@@ -80,6 +80,12 @@ def parse_date_days(s: str) -> int:
                 np.datetime64("1970-01-01")).astype(int))
 
 
+def _host(a):
+    """``a`` as a host array (a torch tensor, on any device, copied to
+    the host)."""
+    return a.cpu().numpy() if hasattr(a, "cpu") else a
+
+
 def numpy_dtype(ctype: DType):
     return _NUMPY_DTYPES[ctype.kind]
 
@@ -144,9 +150,9 @@ class Column:
         output writing and the result materialization that power-run
         timing wraps (the `collect()` analog), so it is numpy-vectorized:
         the old per-element loop cost 1-2 s on a 100k-row result."""
-        v = self.validity()
+        v = _host(self.validity())
         k = self.ctype.kind
-        data = self.data
+        data = _host(self.data)
         if k == "string":
             d = self.dictionary
             good = v & (data >= 0)

@@ -2,27 +2,40 @@
 
 ``Session.sql`` runs the JAX package's main path: it keys each query by
 its normalized text, plans it once through the text-keyed plan cache
-(Planner + optimize), parameter-lifts the plan
+(Planner + optimize, over the session's views), parameter-lifts the plan
 (:func:`ndstpu_torch.analysis.canon.canonicalize`) and runs the
 parameterized plan through :class:`CompilingExecutor.execute_cached`
-under its canonical key, with this rendering's literals as the binding:
-the key's first run discovers, every later run — and every rendering of
-the template that shares the key — replays (on CUDA, one captured
-graph).  DDL/DML, views, snapshot pins, spine splicing and the SPMD
-backends are later slices.
+under its canonical key, prefixed with the views epoch as the JAX
+session prefixes it (a redefined view never replays the old graph), with
+this rendering's literals as the binding: the key's first run discovers,
+every later run — and every rendering of the template that shares the
+key — replays (on CUDA, one captured graph).
+
+The statements beyond queries are the JAX session's ``_run_ddl``: CREATE
+[OR REPLACE] [TEMP] VIEW, CREATE TABLE AS, INSERT INTO, DELETE FROM and
+DROP VIEW/TABLE.  Their queries (an INSERT's SELECT, a CTAS's, a
+DELETE's subqueries) run keyless and eager, as the JAX session runs them,
+with no discovery and no graph; the table edits stay on the device
+(:mod:`ndstpu_torch.engine.dml`).  Snapshot pins, spine splicing and the
+SPMD backends are later slices.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import threading
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+import torch
 
 from ndstpu_torch import faults, obs
-from ndstpu_torch.engine import columnar, planner as pl
+from ndstpu_torch.engine import columnar, dml, expr as ex, plan as lp
+from ndstpu_torch.engine import planner as pl
 from ndstpu_torch.engine.latch import KeyedLatch
 from ndstpu_torch.engine.optimizer import optimize
-from ndstpu_torch.engine.sql import ast, normalize_sql_key, parse_statement
+from ndstpu_torch.engine.sql import (ast, normalize_sql_key, parse_statement,
+                                     parse_statements)
 from ndstpu_torch.engine.torchexec import (
     GROUPBY_DEFAULT,
     CompilingExecutor,
@@ -50,9 +63,13 @@ class Session:
         self._cache_lock = threading.RLock()
         self._exec_lock = threading.RLock()
         self._plan_latch = KeyedLatch()
-        # normalized text -> (catalog versions, plan, display names,
-        # CanonResult or None)
+        # normalized text -> ((views epoch, catalog versions), plan,
+        # display names, CanonResult or None)
         self._plan_cache: Dict[str, tuple] = {}
+        # temp views, and their epoch, bumped on every create and drop: it
+        # prefixes the executor's keys and is part of the plan cache's state
+        self.views: Dict[str, lp.Plan] = {}
+        self._views_epoch = 0
 
     def fresh(self) -> "Session":
         """A new session over the same catalog and device that shares
@@ -62,27 +79,42 @@ class Session:
         this one."""
         new = Session(self.catalog, device=self.device,
                       groupby=self.executor.groupby_mode)
+        new.views, new._views_epoch = dict(self.views), self._views_epoch
         new.executor.share_tables(self.executor)
         return new
 
-    def sql(self, text: str) -> columnar.Table:
-        """Execute one query; returns its result table on the host."""
+    def sql(self, text: str) -> Optional[columnar.Table]:
+        """Execute one statement; returns a query's result table on the
+        host, None for DDL and DML."""
+        return self._run(parse_statement(text), normalize_sql_key(text))
+
+    def sql_script(self, text: str) -> List[Optional[columnar.Table]]:
+        """Execute each statement of a script, its queries keyless."""
+        return [self._run(s) for s in parse_statements(text)]
+
+    def _run(self, stmt: ast.Node, norm: Optional[str] = None
+             ) -> Optional[columnar.Table]:
         # the whole statement is execute_s; the cold-path work nested in
         # it (discovery, capture) carries its own compile_s bucket, which
         # the tracer's self-time accounting subtracts
         with obs.span("statement", cat="plan-node", bucket="execute_s",
-                      device=str(self.device)):
-            stmt = parse_statement(text)
+                      kind=type(stmt).__name__, device=str(self.device)):
             if not isinstance(stmt, ast.Query):
-                raise NotImplementedError(
-                    f"statement {type(stmt).__name__}: only queries are "
-                    f"ported")
-            norm = normalize_sql_key(text)
-            plan, key, params, disp = self._run_args(stmt, norm)
-            with self._exec_lock:
-                faults.check("execute", key=norm)
-                out = self.executor.execute_cached(plan, key, params=params,
-                                                   sql=norm)
+                with self._exec_lock:
+                    return self._run_ddl(stmt)
+            if norm is None:
+                # keyless (a DML statement's query, a script's): planned
+                # fresh and run eagerly, no discovery, no graph
+                plan, _cols, disp = self._plan_fresh(stmt)
+                with self._exec_lock:
+                    faults.check("execute", key=None)
+                    out = self.executor.execute_to_host(plan)
+            else:
+                plan, key, params, disp = self._run_args(stmt, norm)
+                with self._exec_lock:
+                    faults.check("execute", key=norm)
+                    out = self.executor.execute_cached(
+                        plan, key, params=params, sql=norm)
             return columnar.Table(dict(zip(disp, out.columns.values())))
 
     def _run_args(self, stmt: "ast.Query", norm: str):
@@ -90,11 +122,25 @@ class Session:
         binding, display names)``.  Under canonicalization (the
         shape-keyed compile cache) every rendering of a template shares
         one key, its literals bound; otherwise the plan runs under its
-        normalized text with no binding."""
+        normalized text with no binding.  The key carries the views
+        epoch's prefix."""
         plan, disp, canon = self._plan_cached(stmt, norm)
         if canon is not None:
-            return canon.exec_plan, canon.cache_key, canon.binding, disp
-        return plan, norm, None, disp
+            return (canon.exec_plan, self._exec_key(canon.cache_key),
+                    canon.binding, disp)
+        return plan, self._exec_key(norm), None, disp
+
+    def _exec_key(self, key: str) -> str:
+        """The executor's key of a canonical key or normalized text."""
+        return f"{self._views_epoch}|{key}"
+
+    def snapshot_epoch(self) -> str:
+        """An identity of this session's data: a tag over the views
+        epoch and the catalog-version vector (the JAX session's
+        in-memory tag; the lake epoch waits for the lake slice)."""
+        versions = tuple(sorted(self.catalog.versions.items()))
+        blob = repr((self._views_epoch, versions)).encode()
+        return "mem" + hashlib.sha256(blob).hexdigest()[:12]
 
     def plan(self, text: str):
         """The optimized plan of one query and its output columns."""
@@ -111,7 +157,8 @@ class Session:
         threads plan a text once (later arrivals wait on its latch)."""
         faults.check("plan", key=key)
         with self._plan_latch.holding(key):
-            state = tuple(sorted(self.catalog.versions.items()))
+            state = (self._views_epoch,
+                     tuple(sorted(self.catalog.versions.items())))
             with self._cache_lock:
                 ent = self._plan_cache.get(key)
             if ent is not None and ent[0] != state:
@@ -140,11 +187,72 @@ class Session:
             return None
 
     def _plan_fresh(self, stmt: "ast.Query"):
-        planner = pl.Planner(self.catalog, {})
+        planner = pl.Planner(self.catalog, dict(self.views))
         plan, cols = planner.plan_query(stmt)
         # display names: strip alias qualifiers
         disp = self._dedupe(planner._display_names(cols))
         return optimize(plan, self.catalog), cols, disp
+
+    # -- DDL and DML (the JAX session's _run_ddl, _insert, _delete) ----------
+
+    def _run_ddl(self, stmt: ast.Node) -> None:
+        if isinstance(stmt, ast.CreateView):
+            planner = pl.Planner(self.catalog, dict(self.views))
+            plan, cols = planner.plan_query(stmt.query)
+            disp = planner._display_names(cols)
+            self.views[stmt.name] = lp.Project(
+                plan, [(d, ex.ColumnRef(c)) for d, c in zip(
+                    self._dedupe(disp), cols)])
+            self._views_epoch += 1
+            return None
+        if isinstance(stmt, ast.CreateTableAs):
+            t = self._run(stmt.query)
+            self._replace(stmt.name, dml.on_device(t, self.device))
+            return None
+        if isinstance(stmt, ast.InsertInto):
+            return self._insert(stmt)
+        if isinstance(stmt, ast.DeleteFrom):
+            return self._delete(stmt)
+        if isinstance(stmt, ast.DropRel):
+            self.views.pop(stmt.name, None)
+            self._views_epoch += 1
+            if stmt.kind == "table":
+                self.catalog.unregister(stmt.name)
+                self.executor.release_table(stmt.name)
+            return None
+        raise NotImplementedError(f"statement {type(stmt).__name__}")
+
+    def _replace(self, name: str, table: columnar.Table) -> None:
+        """Register ``table`` as ``name`` (its catalog version bumps) and
+        let go of the old table's device copy and graphs."""
+        self.catalog.register(name, table)
+        self.executor.release_table(name)
+
+    def _insert(self, stmt: ast.InsertInto) -> None:
+        rows = self._run(stmt.query)
+        target = self.catalog.get(stmt.table)
+        if len(rows.column_names) != len(target.column_names):
+            raise ValueError(
+                f"INSERT INTO {stmt.table}: {len(rows.column_names)} values "
+                f"for {len(target.column_names)} columns")
+        # positional mapping, cast to the target's exact column types
+        self._replace(stmt.table, dml.append(target, rows, self.device))
+        return None
+
+    def _delete(self, stmt: ast.DeleteFrom) -> None:
+        target = self.catalog.get(stmt.table)
+        if stmt.where is None:
+            hit = torch.ones(target.num_rows, dtype=torch.bool,
+                             device=self.device)
+        else:
+            planner = pl.Planner(self.catalog, dict(self.views))
+            scope = pl.Scope()
+            scope.add(pl.Source(stmt.table, target.column_names))
+            bound = planner._bind(stmt.where, scope)
+            hit = self.executor.where_mask(stmt.table, bound)
+        # rows whose WHERE is FALSE or NULL stay
+        self._replace(stmt.table, dml.keep(target, ~hit))
+        return None
 
     @staticmethod
     def _dedupe(names: List[str]) -> List[str]:
@@ -183,6 +291,11 @@ class Session:
             parse_statement(text), normalize_sql_key(text))
         return self.executor.compiled(plan, key, params)
 
+    def forget(self, text: str) -> None:
+        """Drop the compiled plans a query text runs under, so that its
+        next run starts cold."""
+        self.executor.forget(self._exec_key(self.canonical_key(text)))
+
     def compiled_count(self) -> int:
         """Number of compiled plans this session holds."""
         return len(self.executor._compiled)
@@ -206,8 +319,8 @@ class Session:
             except Exception:  # noqa: BLE001
                 return None
             if canon is not None:
-                return canon.exec_plan, canon.cache_key
-            return plan, key
+                return canon.exec_plan, self._exec_key(canon.cache_key)
+            return plan, self._exec_key(key)
 
         if not os.path.exists(path):
             return 0

@@ -3491,6 +3491,40 @@ class CompilingExecutor(TorchExecutor):
         cp.preloaded = False
         return result
 
+    def where_mask(self, table: str, e: ex.Expr) -> torch.Tensor:
+        """Where ``e`` is TRUE over the rows of the catalog's ``table``
+        (its device copy), NULL counting as not TRUE: the WHERE of a
+        DELETE (the JAX session's ``_delete``), bound over
+        ``<table>.<column>`` names.  Its subqueries run eagerly, as an
+        eager query's do."""
+        def run():
+            dt = self._table_device(table)
+            n = self.catalog.get(table).num_rows
+            named = DTable({f"{table}.{c}": col
+                            for c, col in dt.columns.items()}, dt.alive)
+            self.mode, self.n_syncs, self._subq_cache = "eager", 0, {}
+            try:
+                pred = self._resolve_subqueries(e)
+                with _consts_bound(None), _params_bound(None):
+                    return JEval(named).predicate(pred)[:n]
+            finally:
+                self._subq_cache = {}
+                self._end()
+        with self._exec_lock:
+            return self._with_memory(run)
+
+    def release_table(self, name: str) -> None:
+        """Let go of what holds the replaced or dropped table ``name``:
+        its device copy and the graphs of the compiled plans that read
+        it (their size plans stay until their next run, which finds the
+        catalog version changed and discovers again)."""
+        with self._exec_lock:
+            self._device_cache.pop(name, None)
+            for slot, cp in list(self._graphs.items()):
+                if cp.table_cols is None or name in cp.table_cols:
+                    del self._graphs[slot]
+                    cp.drop_graph()
+
     def forget(self, key: str) -> None:
         """Drop ``key``'s compiled plans and their graphs: the key's next
         run discovers again."""

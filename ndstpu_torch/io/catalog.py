@@ -51,6 +51,11 @@ class Catalog:
                     self.meta[name].dense_key = key
                     self.meta[name].dense_min = lo
 
+    def unregister(self, name: str) -> None:
+        self.tables.pop(name, None)
+        self.meta.pop(name, None)
+        self.versions[name] = self.versions.get(name, 0) + 1
+
     def get(self, name: str) -> columnar.Table:
         return self.tables[name]
 

@@ -230,15 +230,16 @@ def test_memo_sharing_follows_the_binding(sessions):
     assert_tables_match(jax_sess.sql(_TWICE), got, ordered=True)
     plan, _disp, c = sess._plan_cached(*_stmt_and_key(_TWICE))
     assert c.values == (10, 10)
+    key = sess._exec_key(c.cache_key)   # the key sess.sql runs under
     other = ex.ParamBinding(values=(10, 20), scalars=c.binding.scalars)
-    split = exe.execute_cached(c.exec_plan, c.cache_key, params=other)
+    split = exe.execute_cached(c.exec_plan, key, params=other)
     assert (exe.n_discoveries, exe.n_guard_failures,
             exe.n_memo_sig_misses) == (2, 0, 1)
     assert exe.n_memo_hits == 0
     assert sess.compiled_count() == 2
     replays = exe.n_replays
     for binding, hits in ((c.binding, 1), (other, 0), (c.binding, 1)):
-        exe.execute_cached(c.exec_plan, c.cache_key, params=binding)
+        exe.execute_cached(c.exec_plan, key, params=binding)
         assert exe.n_memo_hits == hits
     assert (exe.n_discoveries, exe.n_replays - replays) == (2, 3)
     want = _fresh(sessions).executor.execute_cached(c.exec_plan, "k",
