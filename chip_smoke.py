@@ -1497,17 +1497,28 @@ def decimal_launches(segsum) -> int:
     return segsum.LAUNCHES + segsum.REPLAY_LAUNCHES
 
 
+def graph_calls(cp) -> int:
+    """The ``segsum_decimal`` calls the graphs of one replay of ``cp``
+    hold: its segments' and its own."""
+    return sum(g.kernel_calls for g in cp.programs)
+
+
+def graph_pool_bytes(cp) -> int:
+    """The pool bytes of the graphs one replay of ``cp`` runs."""
+    return sum(g.pool_bytes for g in cp.programs)
+
+
 def profiled_replay(segsum, sess, sql, cp, name) -> int:
-    """One more replay of ``sql``'s graph under ``torch.profiler``; its
-    ``segsum_decimal`` launches, counted from the card's kernel events
-    (``segsum.counting_replays``), must be the calls the capture
-    recorded."""
+    """One more replay of ``sql``'s graphs (its segments' and its own)
+    under ``torch.profiler``; its ``segsum_decimal`` launches, counted from
+    the card's kernel events (``segsum.counting_replays``), must be the
+    calls the captures recorded."""
     with segsum.counting_replays() as seen:
         sess.sql(sql)
-    if seen["launches"] != cp.kernel_calls:
+    if seen["launches"] != graph_calls(cp):
         raise AssertionError(
             f"{name}: the profiler saw {seen['launches']} segsum_decimal "
-            f"launches in a replay of a graph holding {cp.kernel_calls}")
+            f"launches in a replay of graphs holding {graph_calls(cp)}")
     return seen["launches"]
 
 
@@ -1614,9 +1625,10 @@ def corpus_check(segsum, scale: float, seed: int, card: str) -> dict:
     (``segsum_calls``).  Then each part's stream-1 rendering on the card:
     sharing stream 0's canonical key, it must replay with no discovery
     unless a guard failed; it must equal an eager run of its own text.
-    Returns the largest error, the number of calls and the inputs of the
-    call with the most rows, and the parts whose card runs called the
-    kernel."""
+    Then the parts of streams 1 and 2 that splice a shared spine, spliced
+    on the card against the CPU (``spine_check``).  Returns the largest
+    error, the number of calls and the inputs of the call with the most
+    rows, and the parts whose card runs called the kernel."""
     from ndstpu_torch import datagen
     from ndstpu_torch.engine.plan import fixes_order
     from ndstpu_torch.engine.session import Session
@@ -1705,7 +1717,54 @@ def corpus_check(segsum, scale: float, seed: int, card: str) -> dict:
         raise AssertionError(f"stream 1 renderings wrong, or discovered "
                              f"under a shared key with neither a guard "
                              f"failure nor another memo signature: {bad}")
+    spine_check(on_card, on_cpu, card)
     return out
+
+
+def spine_check(on_card, on_cpu, card: str) -> None:
+    """Streams 1 and 2 with the spine cache the throughput phase installs
+    (``scheduler._install_spine_cache``): every part of either stream
+    with a spine flagged across the two runs on the card, its spines
+    spliced (the first stream to reach one materializes it), and must
+    equal the port's CPU run of its text."""
+    from ndstpu_torch.engine import plan as lp
+    from ndstpu_torch.engine.plan import fixes_order
+    from ndstpu_torch.harness import scheduler
+    from ndstpu_torch.queries import streamgen
+    t0 = time.time()
+    streams = {sid: dict(streamgen.render_power_corpus(
+        streamgen.BENCH_RNGSEED, int(sid))) for sid in ("1", "2")}
+    scheduler._install_spine_cache(on_card, streams)
+    cache = on_card.spine_cache
+    if cache is None:
+        raise AssertionError("no spine recurs across streams 1 and 2")
+    bad, parts = [], 0
+    for sid, texts in streams.items():
+        for name, sql in texts.items():
+            if not on_card.spine_candidate_keys(sql) & cache.flagged:
+                continue
+            parts += 1
+            got = on_card.sql(sql)
+            spliced = any(isinstance(n, lp.InlineTable)
+                          for g in on_card.compiled_plan(sql).programs
+                          for n in g.plan.walk())
+            diff = first_difference(
+                engine_rows(on_cpu.sql(sql), nulls=True),
+                engine_rows(got, nulls=True),
+                fixes_order(on_card.plan(sql)[0]))
+            say("corpus check spines", stream=sid, part=name,
+                rows=got.num_rows, spliced=spliced, equal=diff is None,
+                **({} if diff is None else {"difference": diff}))
+            if diff is not None or not spliced:
+                bad.append(f"{sid}:{name}")
+    say("corpus check spines summary", parts=parts,
+        flagged=len(cache.flagged), hits=cache.hits, misses=cache.misses,
+        bytes=cache.total_bytes, evictions=cache.evictions,
+        seconds=time.time() - t0, card=card)
+    on_card.install_spine_cache(None)
+    if bad or not cache.hits:
+        raise AssertionError(f"spliced parts differ from the CPU's, or did "
+                             f"not splice: {bad}; {cache.hits} hits")
 
 
 def keep_largest(out: dict, captured: list, n_calls: int, err: int) -> None:
@@ -1717,6 +1776,14 @@ def keep_largest(out: dict, captured: list, n_calls: int, err: int) -> None:
     for c in captured:
         if out["largest"] is None or c[0].numel() > out["largest"][0].numel():
             out["largest"] = c
+
+
+# the corpus phase at SF 20 when each part ran as one graph, before the
+# executor cut segments (this script's run on an NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's sums
+ONE_GRAPH_CORPUS = {"cold_ms": 155319.02411900018,
+               "replay_warm_ms": 36813.31084299996, "graphs": 103,
+               "captures": 102, "evictions": 92}
 
 
 def corpus_run(segsum, scale: float, seed: int, card: str,
@@ -1733,9 +1800,12 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
     counts zeroed, each part cold (discovery, capture, first replay),
     once warm (a replay, held against the cold run) and, where its graph
     recorded ``segsum_decimal`` calls, once more under ``torch.profiler``
-    (its launches counted from the replay's device events).  Returns the
-    path's launches (the wrapper's, the profiled replays'), that shape's
-    record and each part's rows."""
+    (its launches counted from the replay's device events).  Each part's
+    line gives its graphs (the parent and its segments), the segments it
+    shares with earlier parts and their pools' bytes; the summary gives
+    their sums beside those of one graph a part.  Returns the path's
+    launches (the wrapper's, the profiled replays'), that shape's record
+    and each part's rows."""
     from ndstpu_torch import datagen
     from ndstpu_torch.engine import torchexec
     from ndstpu_torch.engine.session import Session
@@ -1772,8 +1842,10 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
     sess = Session(cat, device="cuda")
     exe = sess.executor
     segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
-    sums = {"cold_ms": 0.0, "replay_warm_ms": 0.0}
+    sums = {"cold_ms": 0.0, "replay_warm_ms": 0.0, "graphs": 0,
+            "shared_segments": 0, "pool_bytes": 0}
     rows = {}
+    segments = set()
     for name, sql in parts:
         allocated = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1797,18 +1869,26 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
         replay_syncs, memo = exe.n_syncs, exe.n_memo_hits
         # a graph that recorded no segsum_decimal call launches none
         profiled = profiled_replay(segsum, sess, sql, cp, name) \
-            if cp.kernel_calls else 0
+            if graph_calls(cp) else 0
         launched = decimal_launches(segsum) - before[0]
-        if (launched or cp.kernel_calls) and name not in kernel_parts:
+        if (launched or graph_calls(cp)) and name not in kernel_parts:
             raise AssertionError(
                 f"{name} launched segsum_decimal at SF {scale:g} but not at "
                 f"the check's scale: its calls were not held bit-exact")
         rows[name] = table.num_rows
+        shared = sum(1 for g in cp.segs if g.slot in segments)
+        segments.update(g.slot for g in cp.segs)
         sums["cold_ms"] += cold
         sums["replay_warm_ms"] += warm_ms
+        sums["graphs"] += len(cp.programs)
+        sums["shared_segments"] += shared
+        sums["pool_bytes"] += graph_pool_bytes(cp)
         say("corpus", part=name, rows=table.num_rows, cold_ms=cold,
-            discover_ms=cp.discover_s * 1e3, capture_ms=cp.capture_s * 1e3,
-            replay_warm_ms=warm_ms, peak_bytes=peak, pool_bytes=cp.pool_bytes,
+            discover_ms=cp.discover_s * 1e3, capture_ms=sum(
+                g.capture_s for g in cp.programs) * 1e3,
+            replay_warm_ms=warm_ms, graphs=len(cp.programs),
+            segments=len(cp.segs), shared_segments=shared,
+            peak_bytes=peak, pool_bytes=graph_pool_bytes(cp),
             discovery_peak_bytes=cp.peak_bytes, allocated_before=allocated,
             held_pool_bytes=exe.pool_bytes(), host_syncs=cold_syncs,
             replay_host_syncs=replay_syncs, memo_hits=memo,
@@ -1816,19 +1896,22 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
             captures=exe.n_captures - before[2],
             evictions=exe.n_evictions - before[3],
             oom_retries=exe.n_oom_retries - before[4],
-            graph_kernel_calls=cp.kernel_calls,
+            graph_kernel_calls=graph_calls(cp),
             replay_segsum_launches_profiled=profiled,
             kernel_launches=launched, card=card)
     launches = (segsum.LAUNCHES, segsum.REPLAY_LAUNCHES)
-    counts = dict(discoveries=exe.n_discoveries, captures=exe.n_captures,
-                  evictions=exe.n_evictions,
+    counts = dict(discoveries=exe.n_discoveries,
+                  segment_discoveries=exe.n_seg_discoveries,
+                  captures=exe.n_captures, evictions=exe.n_evictions,
                   guard_failures=exe.n_guard_failures,
                   memo_signature_misses=exe.n_memo_sig_misses,
                   oom_retries=exe.n_oom_retries)
     say("corpus summary", scale=scale, parts=len(parts),
         seconds=time.time() - t0, kernel_launches=launches[0],
         replay_kernel_launches_profiled=launches[1], **counts,
-        graph_budget_bytes=exe.graph_budget, **sums, card=card)
+        graph_budget_bytes=exe.graph_budget, **sums,
+        distinct_segments=len(segments), one_graph_a_part=ONE_GRAPH_CORPUS,
+        card=card)
     return launches, shape, rows
 
 
@@ -1925,6 +2008,7 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
             preload_ms=ms["Preload compile records"],
             part_ms={n: ms[n] for n in parts if n in ms},
             status=status,
+            preloaded=counters.get("harness.compile_records.preloaded", 0),
             discoveries=counters.get("engine.discoveries", 0),
             compiled_hit=counters.get("engine.cache.compiled.hit", 0),
             compiled_miss=counters.get("engine.cache.compiled.miss", 0),
@@ -1964,7 +2048,9 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
     overlap report (both streams must have run at once), the sidecar's
     and the executor's counters (one plan miss for each text the session
     planned, every text of the streams among them: no text planned
-    twice), the ledger rows, peak bytes and the wall seconds.  Then, on
+    twice), the spine cache's hits, misses, bytes and evictions (at least
+    one hit, and no analysis failure that skipped splicing), the ledger
+    rows, peak bytes and the wall seconds.  Then, on
     the run's session and on this thread (the streams' captured theirs),
     every part whose compiled entry recorded ``segsum_decimal`` calls:
     one replay under ``torch.profiler``, whose launches must be those
@@ -2012,6 +2098,13 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
     planned = set(run.session._plan_cache)
     noticed = sum(st == "CompletedWithTaskFailures" for s in status.values()
                   for st, _f in s.values())
+    cache = run.session.spine_cache
+    spines = {} if cache is None else dict(
+        flagged=len(cache.flagged), hits=cache.hits, misses=cache.misses,
+        held=len(cache), bytes=cache.total_bytes,
+        bytes_served=counters.get("engine.spine.bytes", 0),
+        evictions=cache.evictions, budget_bytes=cache.budget_bytes,
+        errors=counters.get("engine.spine.errors", 0))
     say("throughput", card=card, scale=scale, mode="inproc", streams=2,
         throughput_elapsed_s=elapsed,
         power_test_ms={sid: lg["Power Test Time"] for sid, lg in logs.items()},
@@ -2033,7 +2126,9 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
         plan_miss=counters.get("engine.cache.plan.miss", 0),
         plan_hit=counters.get("engine.cache.plan.hit", 0),
         distinct_texts=len(distinct), planned_texts=len(planned),
-        guard_failures=exe.n_guard_failures, evictions=exe.n_evictions,
+        segment_discoveries=exe.n_seg_discoveries,
+        guard_failures=exe.n_guard_failures, rediscoveries=exe.n_guard_failures,
+        evictions=exe.n_evictions, spines=spines,
         memo_signature_misses=exe.n_memo_sig_misses,
         oom_retries=exe.n_oom_retries, graph_budget_bytes=exe.graph_budget,
         held_pool_bytes=exe.pool_bytes(), segsum_launches=wrapper,
@@ -2043,6 +2138,9 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
         wall_s=wall)
     if run.rc or run.errors:
         raise AssertionError(f"throughput: stream errors {run.errors}")
+    if not spines or spines["hits"] == 0 or spines["errors"]:
+        raise AssertionError(f"throughput: no spine served, or an analysis "
+                             f"failure skipped splicing: {spines}")
     for sid in streams:
         if set(status[sid]) != set(texts[sid]):
             raise AssertionError(f"throughput stream {sid}: summaries for "
@@ -2071,7 +2169,7 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
     for sid in streams:
         for name, sql in texts[sid].items():
             cp = sess.compiled_plan(sql)
-            if cp is None or not cp.kernel_calls:
+            if cp is None or not graph_calls(cp):
                 continue
             # a replay (or the capture of an evicted graph, or the
             # rediscovery of the other stream's binding), so that the
@@ -2080,11 +2178,11 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
             cp = sess.compiled_plan(sql)
             with segsum.counting_replays() as seen:
                 got = sess.sql(sql)
-            if seen["launches"] != cp.kernel_calls:
+            if seen["launches"] != graph_calls(cp):
                 raise AssertionError(
                     f"throughput {sid}:{name}: the profiler saw "
                     f"{seen['launches']} segsum_decimal launches in a replay "
-                    f"of a graph holding {cp.kernel_calls}")
+                    f"of graphs holding {graph_calls(cp)}")
             plan = sess.plan(sql)[0]
             diff = first_difference(
                 engine_rows(exe.execute_to_host(plan), nulls=True),
@@ -2290,7 +2388,7 @@ def maintenance_check(segsum, scale: float, seed: int, card: str) -> tuple:
         second = on_card.sql(sql[q])
         cp = on_card.compiled_plan(sql[q])
         profiled = profiled_replay(segsum, on_card, sql[q], cp, q) \
-            if cp.kernel_calls else 0
+            if graph_calls(cp) else 0
         want = engine_rows(on_cpu.sql(sql[q]), nulls=True)
         ordered = fixes_order(on_card.plan(sql[q])[0])
         diffs = {run: first_difference(want, engine_rows(t, nulls=True),
@@ -2299,7 +2397,7 @@ def maintenance_check(segsum, scale: float, seed: int, card: str) -> tuple:
         diffs = {run: d for run, d in diffs.items() if d is not None}
         say("maintenance check query", part=q, rows=first.num_rows,
             discoveries=rediscovered, replays=exe.n_replays - r0,
-            graph_kernel_calls=cp.kernel_calls,
+            graph_kernel_calls=graph_calls(cp),
             replay_segsum_launches_profiled=profiled, equal=not diffs,
             **({"differences": diffs} if diffs else {}))
         if diffs or rediscovered != 1:
@@ -2597,7 +2695,7 @@ def main() -> int:
                                  f"launched it no time")
         return got, dict(
             query=q, cold_ms=cold, warm_ms=warm,
-            rows=len(got), peak_bytes=peak, pool_bytes=cp.pool_bytes,
+            rows=len(got), peak_bytes=peak, pool_bytes=graph_pool_bytes(cp),
             discovery_peak_bytes=cp.peak_bytes, allocated_before=allocated,
             held_pool_bytes_before=held,
             host_syncs=cold_syncs, replay_host_syncs=exe.n_syncs,
@@ -2605,7 +2703,7 @@ def main() -> int:
             captures=exe.n_captures - before[3],
             oom_retries=exe.n_oom_retries - before[4],
             memo_hits=exe.n_memo_hits, routes_to_kernel=any(routed),
-            kernel_launches=launched, graph_kernel_calls=cp.kernel_calls,
+            kernel_launches=launched, graph_kernel_calls=graph_calls(cp),
             replay_segsum_launches_profiled=profiled,
             f32_kernel_launches=segsum.LAUNCHES_F32 - before[1], card=card)
 

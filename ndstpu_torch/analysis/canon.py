@@ -1,9 +1,9 @@
 """Plan canonicalization: parameter lifting, safety classification, and
 shape-keyed fingerprints.
 
-The port's copy of ``ndstpu.analysis.canon`` with its imports changed
-(and without ``canonicalize_subtrees``, which serves cross-query spine
-sharing, a later slice).  Fingerprints and cache keys equal the JAX
+The port's copy of ``ndstpu.analysis.canon`` with its imports changed,
+and an inline table's fingerprint read from its ``content_fp`` where it
+has one (a spine on the device).  Fingerprints and cache keys equal the JAX
 package's for the same plan (``tests/test_torch_canon.py``), so "one
 compiled XLA program" below reads "one captured CUDA graph" here.
 
@@ -57,7 +57,8 @@ from ndstpu_torch.engine.columnar import (
     BOOL, DATE, FLOAT64, INT32, INT64, STRING, DType)
 from ndstpu_torch.analysis.diagnostics import Diagnostic
 
-__all__ = ["CanonResult", "Slot", "canonicalize", "column_source"]
+__all__ = ["CanonResult", "Slot", "SubtreeCanon", "canonicalize",
+           "canonicalize_subtrees", "column_source"]
 
 _CMP_OPS = {"=", "<>", "<", "<=", ">", ">="}
 
@@ -693,6 +694,12 @@ class _Canon:
 
 
 def _inline_table_fp(t) -> str:
+    # a table whose columns live on a device (a materialized spine,
+    # ndstpu_torch.engine.spine) carries its identity, made when it was
+    # built, so that fingerprinting it reads nothing back
+    given = getattr(t, "content_fp", None)
+    if given is not None:
+        return given
     parts = []
     for name in t.column_names:
         c = t.columns[name]
@@ -901,3 +908,64 @@ def canonicalize(plan: lp.Plan, tables: Optional[Dict[str, object]] = None,
         canon_plan=canon_plan, exec_plan=exec_plan, slots=slots,
         values=tuple(s["value"] for s in c.slots),
         diagnostics=tuple(c.diags))
+
+# ---------------------------------------------------------------------------
+# subtree canonicalization
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SubtreeCanon:
+    """Canonicalization of one plan SUBTREE treated as its own root.
+
+    Slot numbering restarts per subtree, so a spine shared by two queries
+    collapses to one fingerprint even when the enclosing plans lift a
+    different number of literals before reaching it."""
+
+    path: str                      # canon-convention path from the plan root
+    node: lp.Plan = dataclasses.field(compare=False, hash=False)
+    kind: str = ""                 # root node type name
+    size: int = 0                  # plan nodes in the subtree
+    canon: Optional[CanonResult] = dataclasses.field(
+        default=None, compare=False, hash=False)
+
+
+def _plan_children(p: lp.Plan) -> List[lp.Plan]:
+    """Plan-node children in the ordinal order `_Canon._node` paths use."""
+    if isinstance(p, (lp.Join, lp.SetOp)):
+        return [p.left, p.right]
+    child = getattr(p, "child", None)
+    return [child] if isinstance(child, lp.Plan) else []
+
+
+def _subtree_size(p: lp.Plan) -> int:
+    return 1 + sum(_subtree_size(c) for c in _plan_children(p))
+
+
+def canonicalize_subtrees(plan: lp.Plan,
+                          tables: Optional[Dict[str, object]] = None,
+                          query: str = "") -> List[SubtreeCanon]:
+    """Canonicalize EVERY plan subtree as its own root, root-first.
+
+    Paths follow the `_Canon._node` convention
+    (``RootType/ChildType[i]/...``) so subtree records line up with the
+    NDS diagnostics anchored on the same plan.  A subtree whose
+    canonicalization raises is recorded with ``canon=None`` rather than
+    aborting the sweep — the callers (spines.py, session splicing) treat
+    it as opaque/unshareable."""
+    tables = _schema_tables(tables)
+    out: List[SubtreeCanon] = []
+
+    def visit(p: lp.Plan, path: str) -> None:
+        try:
+            c = canonicalize(p, tables, query)
+        except Exception:
+            c = None
+        out.append(SubtreeCanon(
+            path=path, node=p, kind=type(p).__name__,
+            size=_subtree_size(p), canon=c))
+        for i, ch in enumerate(_plan_children(p)):
+            visit(ch, f"{path}/{type(ch).__name__}[{i}]")
+
+    visit(plan, type(plan).__name__)
+    return out

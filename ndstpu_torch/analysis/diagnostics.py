@@ -2,7 +2,9 @@
 ``ndstpu.analysis.diagnostics``.
 
 :class:`Diagnostic` is the finding :mod:`ndstpu_torch.analysis.canon`
-emits (``NDS4xx``, plan canonicalization and parameter lifting); the
+emits (``NDS4xx``, plan canonicalization and parameter lifting),
+:mod:`.typecheck` (``NDS1xx``, schema inference) and :mod:`.spines`
+(``NDS5xx``, cross-query common spines); the
 ``NDS2xx`` codes are the device-lowering refusals that
 :class:`ndstpu_torch.engine.torchexec.Unsupported` carries.  Severity
 model: ``error`` the part cannot run on the device path, ``warning`` it
@@ -17,6 +19,12 @@ from typing import Dict, Tuple
 SEVERITIES = ("error", "warning", "info")
 
 CODES: Dict[str, Tuple[str, str]] = {
+    # -- NDS1xx typing ----------------------------------------------------
+    "NDS101": ("warning", "join key dtype mismatch"),
+    "NDS102": ("warning", "lossy implicit or explicit cast"),
+    "NDS103": ("info", "int32 aggregate overflow risk at scale factor"),
+    "NDS104": ("warning", "SetOp arity or column type mismatch"),
+    "NDS105": ("info", "under-specified sort keys (nondeterministic ties)"),
     # -- NDS2xx device lowering ------------------------------------------
     "NDS201": ("error", "expression node not lowerable on device"),
     "NDS202": ("error", "binary operator not lowerable on device"),
@@ -43,6 +51,32 @@ CODES: Dict[str, Tuple[str, str]] = {
                        "unclean IN-list)"),
     "NDS404": ("warning", "corpus part does not collapse to one canonical "
                           "fingerprint across probed streams/seeds"),
+    # -- NDS5xx cross-query common-spine sharing --------------------------
+    "NDS501": ("info", "shared-spine candidate: canonical subtree recurs "
+                       "across corpus parts and is runtime-spliceable"),
+    "NDS502": ("info", "param-divergent spine: subtrees share a canonical "
+                       "shape but bind different literal values, so the "
+                       "value-keyed materialization cache cannot serve "
+                       "one result to all of them"),
+    "NDS503": ("info", "nondeterministic/row-order-sensitive subtree "
+                       "(sort/window/limit inside): excluded from spine "
+                       "materialization"),
+    "NDS504": ("info", "estimated spine bytes exceed the memory-planner "
+                       "budget (memplan row-width model): materialization "
+                       "would not be admitted"),
+    # -- NDS6xx static cost model -----------------------------------------
+    "NDS601": ("warning", "broadcast build side over the replication "
+                          "byte budget (cost model demotes it to the "
+                          "shuffle path)"),
+    "NDS602": ("warning", "spill-risk working set: predicted per-device "
+                          "bytes exceed the device budget (fact must "
+                          "stream out-of-core)"),
+    "NDS603": ("info", "exchange-heavy plan: predicted collective "
+                       "(all_to_all) bytes over the heavy-traffic "
+                       "threshold"),
+    "NDS604": ("info", "misestimate: static cardinality estimate vs "
+                       "ledger-observed output beyond the calibration "
+                       "threshold"),
 }
 
 
@@ -73,3 +107,8 @@ class Diagnostic:
         """Identity: query + code + plan path (message text may
         legitimately drift as inference sharpens)."""
         return (self.query, self.code, self.path)
+
+    def as_dict(self) -> Dict[str, str]:
+        return {"query": self.query, "code": self.code,
+                "severity": self.severity, "path": self.path,
+                "message": self.message}

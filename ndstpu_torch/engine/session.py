@@ -16,8 +16,16 @@ The statements beyond queries are the JAX session's ``_run_ddl``: CREATE
 DROP VIEW/TABLE.  Their queries (an INSERT's SELECT, a CTAS's, a
 DELETE's subqueries) run keyless and eager, as the JAX session runs them,
 with no discovery and no graph; the table edits stay on the device
-(:mod:`ndstpu_torch.engine.dml`).  Snapshot pins, spine splicing and the
-SPMD backends are later slices.
+(:mod:`ndstpu_torch.engine.dml`).
+
+With a spine cache installed (:meth:`Session.install_spine_cache`, which
+the in-process throughput scheduler calls), a query's shared spines —
+the subtrees :mod:`ndstpu_torch.analysis.spines` flags as recurring
+across the streams — are spliced out of its plan before it runs
+(``_splice_spines``, the JAX session's): the first query to reach one
+materializes it on the device, later queries read the cached device
+table in its place, and the spliced plan re-canonicalizes to a key of its
+own.  Snapshot pins and the SPMD backends are later slices.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 
 from ndstpu_torch import faults, obs
 from ndstpu_torch.engine import columnar, dml, expr as ex, plan as lp
+from ndstpu_torch.engine import spine as spine_mod
 from ndstpu_torch.engine import planner as pl
 from ndstpu_torch.engine.latch import KeyedLatch
 from ndstpu_torch.engine.optimizer import optimize
@@ -70,6 +79,16 @@ class Session:
         # prefixes the executor's keys and is part of the plan cache's state
         self.views: Dict[str, lp.Plan] = {}
         self._views_epoch = 0
+        # cross-query spine sharing (install_spine_cache): the cache, each
+        # text's eligible sites (with the identity of the plan they point
+        # into), the spliced plans, and the spines made so far
+        self.spine_cache: Optional[spine_mod.SpineCache] = None
+        self._spine_sites_cache: Dict[str, tuple] = {}
+        self._spine_splice_memo: Dict[tuple, tuple] = {}
+        self._spines_made = 0
+        # with a spine cache: normalized text -> (plan, key, binding) of
+        # its last run, which may have spliced spines
+        self._ran: Dict[str, tuple] = {}
 
     def fresh(self) -> "Session":
         """A new session over the same catalog and device that shares
@@ -110,25 +129,33 @@ class Session:
                     faults.check("execute", key=None)
                     out = self.executor.execute_to_host(plan)
             else:
-                plan, key, params, disp = self._run_args(stmt, norm)
+                plan, disp, canon = self._plan_cached(stmt, norm)
                 with self._exec_lock:
+                    if self.spine_cache is not None:
+                        plan, canon = self._splice_spines(plan, canon, norm)
+                    run = self._exec_args(plan, canon, norm)
+                    if self.spine_cache is not None:
+                        self._ran[norm] = run
                     faults.check("execute", key=norm)
-                    out = self.executor.execute_cached(
-                        plan, key, params=params, sql=norm)
+                    out = self.executor.execute_cached(*run, sql=norm)
             return columnar.Table(dict(zip(disp, out.columns.values())))
 
     def _run_args(self, stmt: "ast.Query", norm: str):
-        """What ``sql`` hands the executor for a query: ``(plan, key,
-        binding, display names)``.  Under canonicalization (the
-        shape-keyed compile cache) every rendering of a template shares
-        one key, its literals bound; otherwise the plan runs under its
-        normalized text with no binding.  The key carries the views
-        epoch's prefix."""
+        """What ``sql`` hands the executor for a query, spines not
+        spliced: ``(plan, key, binding, display names)``."""
         plan, disp, canon = self._plan_cached(stmt, norm)
+        return self._exec_args(plan, canon, norm) + (disp,)
+
+    def _exec_args(self, plan, canon, norm: str) -> tuple:
+        """``(plan, key, binding)`` of a planned query.  Under
+        canonicalization (the shape-keyed compile cache) every rendering
+        of a template shares one key, its literals bound; otherwise the
+        plan runs under its normalized text with no binding.  The key
+        carries the views epoch's prefix."""
         if canon is not None:
             return (canon.exec_plan, self._exec_key(canon.cache_key),
-                    canon.binding, disp)
-        return plan, self._exec_key(norm), None, disp
+                    canon.binding)
+        return plan, self._exec_key(norm), None
 
     def _exec_key(self, key: str) -> str:
         """The executor's key of a canonical key or normalized text."""
@@ -173,6 +200,143 @@ class Session:
             with self._cache_lock:
                 self._plan_cache[key] = (state, plan, disp, canon)
             return plan, disp, canon
+
+    # -- cross-query spine sharing (engine/spine.py + analysis/spines.py) ----
+
+    def install_spine_cache(self, cache: Optional[spine_mod.SpineCache]
+                            ) -> None:
+        """Share spines across the queries of this session through
+        ``cache`` (None: stop).  The executor counts the cache's device
+        bytes against its graph budget, and a table that leaves the cache
+        takes the compiled plans that splice it with it."""
+        with self._exec_lock:
+            if self.spine_cache is not None:
+                self.spine_cache.clear()
+            self._ran.clear()
+            if cache is not None:
+                cache.on_evict = self._release_spine
+            self.spine_cache = self.executor.spines = cache
+
+    def _release_spine(self, table) -> None:
+        """A spine left the cache: drop the spliced plans and compiled
+        plans that hold it, so that its device memory is free."""
+        for mk in [mk for mk in self._spine_splice_memo
+                   if id(table) in mk[3]]:
+            del self._spine_splice_memo[mk]
+        self.executor.release_spine(table)
+
+    def _spine_sites_for(self, plan: lp.Plan, key: str):
+        """Eligible spine sites for one cached plan: the outermost
+        non-overlapping shareable subtrees the analyzer flags
+        (analysis/spines.py — shared rule set with the MQO audit).
+        Memoized per query text; invalidated with the plan cache's
+        state so site node references always point into the plan
+        object `_plan_cached` currently serves."""
+        from ndstpu_torch.analysis import spines as sp
+        memo = self._spine_sites_cache
+        ent = memo.get(key)
+        if ent is not None and ent[0] is plan:
+            return ent[1]
+        sites = sp.eligible_sites(sp.subtree_sites(plan, query=key))
+        with self._cache_lock:
+            memo[key] = (plan, sites)
+        return sites
+
+    def spine_candidate_keys(self, text: str) -> set:
+        """Value keys of the eligible spine sites in one query text —
+        what the scheduler counts across streams to decide which spines
+        are worth publishing (>= 2 occurrences)."""
+        try:
+            stmt = parse_statement(text)
+            if not isinstance(stmt, ast.Query):
+                return set()
+            key = normalize_sql_key(text)
+            plan, _disp, canon = self._plan_cached(stmt, key)
+            if canon is None:
+                return set()   # canonicalization off/failed: no splicing
+            return {s.value_key for s in self._spine_sites_for(plan, key)}
+        except Exception:  # noqa: BLE001 — unplannable text
+            return set()
+
+    def _splice_spines(self, plan: lp.Plan, canon, key: str):
+        """Replace this plan's flagged spine subtrees with their
+        materialized device tables (InlineTable), publishing on first use
+        (the JAX session's ``_splice_spines``).
+
+        Requires a successful canonicalization: the spliced plan
+        re-canonicalizes before execution, and each spine's identity
+        (``content_fp``, made when it is materialized) folds into that
+        fingerprint, so the spliced and unspliced plans get distinct
+        compile-cache entries by construction.  Runs under `_exec_lock`.
+        A materialization failure propagates like any query failure;
+        an analysis failure skips splicing and counts
+        ``engine.spine.errors``.  A spine larger than the whole cache
+        budget is not spliced: the query runs its subtree itself."""
+        cache = self.spine_cache
+        if not spine_mod.enabled() or cache is None or canon is None:
+            return plan, canon
+        try:
+            sites = [s for s in self._spine_sites_for(plan, key)
+                     if cache.eligible(s.value_key)]
+        except Exception:  # noqa: BLE001 — analyzer defect: run unspliced
+            obs.inc("engine.spine.errors")
+            return plan, canon
+        if not sites:
+            return plan, canon
+        state = (self._views_epoch,
+                 tuple(sorted(self.catalog.versions.items())))
+        hits = 0
+        saved = 0
+        replacements = {}
+        spliced_keys = []
+        for site in sites:
+            vk = site.value_key
+            with cache.holding(vk):
+                t = cache.get(vk, state)
+                if t is None:
+                    obs.inc("engine.spine.miss")
+                    cache.misses += 1
+                    # materialize the subtree standalone, on the device;
+                    # exceptions propagate as this query's failure
+                    t = self.executor.materialize(site.node)
+                    self._spines_made += 1
+                    t.content_fp = f"T(spine:{vk}:{self._spines_made})"
+                    if not cache.put(vk, state, t):
+                        continue
+                else:
+                    hits += 1
+                    cache.hits += 1
+                    nbytes = spine_mod.table_bytes(t)
+                    saved += nbytes
+                    obs.inc("engine.spine.hit")
+                    obs.inc("engine.spine.bytes", nbytes)
+            replacements[id(site.node)] = lp.InlineTable(
+                t, name=f"spine:{vk[:16]}")
+            spliced_keys.append(vk)
+        if hits:
+            obs.annotate(spine_hits=hits, spine_bytes_saved=saved)
+        if not replacements:
+            return plan, canon
+        # memo the spliced plan + its canon: same text + same spine
+        # tables + same state = same splice (an evicted table's entries
+        # go with it, _release_spine)
+        mk = (key, tuple(spliced_keys), state,
+              tuple(id(r.table) for r in replacements.values()))
+        memo = self._spine_splice_memo
+        ent = memo.get(mk)
+        if ent is not None:
+            return ent
+        new_plan = spine_mod.replace_nodes(plan, replacements)
+        canon2 = self._canonicalize(new_plan, key)
+        if canon2 is None:
+            # without a canonical key the spliced plan would collide
+            # with the unspliced program under the text key — run
+            # unspliced instead (correct, just unshared)
+            return plan, canon
+        if len(memo) >= 256:
+            memo.pop(next(iter(memo)))
+        memo[mk] = (new_plan, canon2)
+        return new_plan, canon2
 
     @staticmethod
     def _canonicalize(plan, key: str):
@@ -286,14 +450,20 @@ class Session:
 
     def compiled_plan(self, text: str):
         """The compiled plan a query text runs (or None): its canonical
-        key's, under its binding's memo signature."""
-        plan, key, params, _disp = self._run_args(
-            parse_statement(text), normalize_sql_key(text))
-        return self.executor.compiled(plan, key, params)
+        key's, under its binding's memo signature (with spines spliced,
+        the key its last run ran under)."""
+        norm = normalize_sql_key(text)
+        run = self._ran.get(norm)
+        if run is None:
+            run = self._run_args(parse_statement(text), norm)[:3]
+        return self.executor.compiled(*run)
 
     def forget(self, text: str) -> None:
         """Drop the compiled plans a query text runs under, so that its
         next run starts cold."""
+        run = self._ran.pop(normalize_sql_key(text), None)
+        if run is not None:
+            self.executor.forget(run[1])
         self.executor.forget(self._exec_key(self.canonical_key(text)))
 
     def compiled_count(self) -> int:

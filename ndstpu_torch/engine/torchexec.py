@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import gc
 import os
@@ -473,19 +474,27 @@ def _any_none(xs) -> bool:
 
 
 def _plan_fp(o, out: Optional[list] = None,
-             values: Optional[Sequence[object]] = None) -> Optional[str]:
+             values: Optional[Sequence[object]] = None,
+             content: bool = False) -> Optional[str]:
     """Structural fingerprint of a plan/expression tree
     (jaxexec._plan_fp).  Unlike ``repr`` it covers every dataclass field
-    (Literal's repr hides its ctype).  The port uses it only within one
-    plan (aggregate leaves, the plan-subtree memo), so an inline table is
-    keyed by the identity of its table, which lives as long as the
-    plan.  With ``values`` (a binding's slot values) a parameter reads
-    as its bound value, as the literal it was lifted from would."""
+    (Literal's repr hides its ctype).  Within one plan (aggregate leaves,
+    the plan-subtree memo) an inline table is keyed by the identity of its
+    table, which lives as long as the plan.  With ``values`` (a binding's
+    slot values) a parameter reads as its bound value, as the literal it
+    was lifted from would.  With ``content`` the fingerprint is
+    jaxexec's, stable across plans and processes (it keys segments shared
+    across query parts and persisted records): an inline table by its
+    content, and an object with no content-based repr raises TypeError."""
     top = out is None
     if top:
         out = []
     if isinstance(o, lp.InlineTable):
-        out.append(f"IT{id(o.table)}")
+        if content:
+            from ndstpu_torch.analysis.canon import _inline_table_fp
+            out.append(f"IT{_inline_table_fp(o.table)}")
+        else:
+            out.append(f"IT{id(o.table)}")
     elif values is not None and isinstance(o, ex.Param) and not o.shape:
         out.append(f"V{o.ctype!r}={values[o.slot]!r}")
     elif values is not None and isinstance(o, ex.InParam):
@@ -496,23 +505,31 @@ def _plan_fp(o, out: Optional[list] = None,
         out.append(type(o).__name__)
         out.append("(")
         for f in dataclasses.fields(o):
-            _plan_fp(getattr(o, f.name), out, values)
+            _plan_fp(getattr(o, f.name), out, values, content)
             out.append(",")
         out.append(")")
     elif isinstance(o, (list, tuple)):
         out.append("[")
         for x in o:
-            _plan_fp(x, out, values)
+            _plan_fp(x, out, values, content)
             out.append(",")
         out.append("]")
     elif isinstance(o, np.ndarray):
         # repr() elides long arrays ("...") — fingerprint the bytes
         out.append(f"ND{o.dtype}{o.shape}{zlib.crc32(o.tobytes())}")
     else:
-        out.append(repr(o))
+        r = repr(o)
+        # a default repr embeds a process-local address
+        if content and _DEFAULT_REPR.search(r):
+            raise TypeError(f"_plan_fp: {type(o).__name__} has no "
+                            f"content-based repr")
+        out.append(r)
     if top:
         return "".join(out)
     return None
+
+
+_DEFAULT_REPR = re.compile(r"<[^<>]* at 0x[0-9a-fA-F]+>")
 
 
 # plan nodes that run once a query when the plan holds them more than
@@ -820,14 +837,18 @@ def _params_bound(ctx: Optional[_ParamCtx]):
         _ACTIVE_PARAMS.ctx = prev
 
 
-def _param_args_np(spec, binding: Optional[ex.ParamBinding]) -> dict:
+def _param_args_np(spec, binding: Optional[ex.ParamBinding],
+                   slots: Optional[frozenset] = None) -> dict:
     """Host arguments of one compiled plan under one binding: every
-    bindable scalar slot plus one hit table / coerced vector per recorded
-    spec entry.  Replay copies them into the plan's device buffers."""
+    bindable scalar slot (of ``slots``, where given) plus one hit table /
+    coerced vector per recorded spec entry.  Replay copies them into the
+    plan's device buffers."""
     out = {}
     if binding is None:
         return out
     for slot, ctype in binding.scalars:
+        if slots is not None and slot not in slots:
+            continue
         out[f"s{slot}"] = np.asarray(
             _param_scalar_np(binding.values[slot], ctype))
     for j, ent in enumerate(spec or ()):
@@ -3236,9 +3257,10 @@ class TorchExecutor:
 
 @dataclasses.dataclass
 class _CompiledPlan:
-    """One query key's compiled plan (jaxexec._CompiledPlan): the size
-    plan discovery recorded, what replay needs to rebuild its inputs, and
-    on CUDA the captured graph with its static buffers."""
+    """One compiled program (jaxexec._CompiledPlan): a query key's parent
+    plan, or one of the segments it reads (:func:`_cut_segments`).  The
+    size plan discovery recorded, what replay needs to rebuild its inputs,
+    and on CUDA the captured graph with its static buffers."""
 
     key: str
     plan: lp.Plan
@@ -3270,9 +3292,25 @@ class _CompiledPlan:
     # host seconds of the discovery run and of the last capture
     discover_s: float = 0.0
     capture_s: float = 0.0
+    # the capacity of the compacted output: what a segment hands the
+    # parents that read it
+    out_capacity: int = 0
+    # a parent's segments (jaxexec's seg_fps): the fingerprints its
+    # DeviceResult leaves name and the segments' compiled plans it was
+    # discovered over, in cut order; a segment's: the scalar parameter
+    # slots its plan reads (its graph's buffers hold only those)
+    seg_fps: Optional[List[str]] = None
+    segs: Optional[list] = None
+    scalar_slots: Optional[frozenset] = None
+    # the segments of a parent's cut whose result another computes under
+    # its memo signature (_seg_aliases): fp -> that one's; its plan reads
+    # that one's DeviceResult in their place
+    seg_alias: Optional[Dict[str, str]] = None
     # the captured graph (CUDA), its static parameter buffers, its
     # outputs (out, alive, ok), their pinned host copies, the segment
-    # sum kernel's aux words, the kernel calls it holds and its pool bytes
+    # sum kernel's aux words, the kernel calls it holds and its pool
+    # bytes; a parent's graph reads its own copies of its segments'
+    # outputs, fingerprint -> (out, alive, ok), written before each replay
     graph: object = None
     bufs: Optional[dict] = None
     outputs: Optional[tuple] = None
@@ -3280,17 +3318,24 @@ class _CompiledPlan:
     aux: Optional[torch.Tensor] = None
     kernel_calls: int = 0
     pool_bytes: int = 0
+    seg_bufs: Optional[dict] = None
 
     @property
     def slot(self) -> tuple:
         """The compile cache's key of this entry."""
         return self.key, self.memo_sig
 
+    @property
+    def programs(self) -> list:
+        """The compiled plans one replay of this entry runs: its segments,
+        then itself (one graph each on CUDA)."""
+        return list(self.segs or ()) + [self]
+
     def drop_graph(self) -> None:
         """Release the graph and everything it holds; the size plan
         stays, so a later run recaptures with no discovery."""
         self.graph = self.bufs = self.outputs = self.host_out = None
-        self.aux = None
+        self.aux = self.seg_bufs = None
         self.pool_bytes = 0
 
 
@@ -3308,6 +3353,131 @@ def _scan_columns(p: lp.Plan) -> Dict[str, Optional[List[str]]]:
                     if c not in out[node.table]:
                         out[node.table].append(c)
     return out
+
+
+def _scalar_slots(o, out: Optional[set] = None) -> set:
+    """The slots of the scalar parameters anywhere in a plan tree, its
+    expressions and their subquery plans included."""
+    if out is None:
+        out = set()
+    if isinstance(o, ex.Param):
+        if not o.shape:
+            out.add(o.slot)
+    elif isinstance(o, lp.InlineTable):
+        pass
+    elif dataclasses.is_dataclass(o) and not isinstance(o, type):
+        for f in dataclasses.fields(o):
+            _scalar_slots(getattr(o, f.name), out)
+    elif isinstance(o, (list, tuple)):
+        for x in o:
+            _scalar_slots(x, out)
+    return out
+
+
+def _reads_table(p: lp.Plan, table) -> bool:
+    """Whether ``p`` splices ``table`` (an inline table's, by identity)."""
+    return any(isinstance(n, lp.InlineTable) and n.table is table
+               for n in p.walk())
+
+
+def _seg_argname(fp: str) -> str:
+    """The key of a segment among the compiled programs and a parent's
+    inputs (cannot collide with a query key or a table name: NUL is not
+    legal in identifiers)."""
+    return "\x00seg:" + fp
+
+
+# segmented compilation (jaxexec._cut_segments): plans of at least
+# _SEG_MIN_TOTAL nodes run each maximal Aggregate, Window or Distinct
+# subtree of at least _SEG_MIN_NODES nodes as a program of its own, one
+# graph on CUDA, whose result stays on the device and feeds the parent.
+# jaxexec cuts because the TPU compiler wedges on large programs; on the
+# card a segment is the unit that identical subtrees of several query
+# parts share (CTE instantiations), and its own unit of capture and
+# eviction.  The thresholds are jaxexec's, so the cut is the same.
+_SEG_CUT_TYPES = (lp.Aggregate, lp.Window, lp.Distinct)
+_SEG_MIN_NODES = 5       # minimum subtree size worth its own program
+_SEG_MIN_TOTAL = 14      # plans smaller than this stay single-program
+
+
+def _cut_segments(p: lp.Plan):
+    """Split a plan for segmented compilation.
+
+    Returns ``(parent_plan, segments)`` where segments is an ordered
+    {fingerprint: subplan} of maximal Aggregate/Window/Distinct subtrees
+    and parent_plan has each occurrence replaced by lp.DeviceResult.
+    Identical subtrees (multi-part CTE instantiation) share one segment.
+    Deterministic for a given plan tree — discovery, replay, and record
+    reload all cut identically; the fingerprints are jaxexec's."""
+    segs: Dict[str, lp.Plan] = {}
+    if sum(1 for _ in p.walk()) < _SEG_MIN_TOTAL:
+        return p, segs
+
+    def rebuild(node: lp.Plan, is_root: bool) -> lp.Plan:
+        if not is_root and isinstance(node, _SEG_CUT_TYPES) and \
+                sum(1 for _ in node.walk()) >= _SEG_MIN_NODES:
+            try:
+                fp = _plan_fp(node, content=True)
+            except TypeError:
+                fp = None  # un-fingerprintable: keep the subtree inline
+            if fp is not None:
+                segs.setdefault(fp, node)
+                return lp.DeviceResult(fp)
+        kids = node.children()
+        if not kids:
+            return node
+        new_kids = [rebuild(k, False) for k in kids]
+        if all(nk is k for nk, k in zip(new_kids, kids)):
+            return node
+        q = copy.copy(node)
+        if hasattr(q, "child"):
+            q.child = new_kids[0]
+        elif hasattr(q, "left"):
+            q.left, q.right = new_kids
+        else:
+            raise RuntimeError(
+                f"unknown child layout on {type(node).__name__}")
+        return q
+
+    parent = rebuild(p, True)
+    return parent, segs
+
+
+def _seg_aliases(cut: Dict[str, lp.Plan],
+                 values: Optional[Sequence[object]]) -> Dict[str, str]:
+    """Each segment of ``cut`` whose result another one computes under a
+    binding's ``values`` -> that one's fingerprint: the plan-subtree
+    memo's sharing (:func:`_memo_key`), which the cut alone does not see,
+    since the canonicalizer gives each copy of a CTE its own parameter
+    slots (q4's six references to ``year_total`` cut into 18 segments
+    and compute 3)."""
+    first: Dict[str, str] = {}
+    out = {}
+    for fp, sub in cut.items():
+        key = _memo_key(sub, values)
+        rep = fp if key is None else first.setdefault(key, fp)
+        if rep != fp:
+            out[fp] = rep
+    return out
+
+
+def _rename_results(p: lp.Plan, alias: Dict[str, str]) -> lp.Plan:
+    """``p`` with each DeviceResult of ``alias`` naming the segment that
+    computes its result, so that the plan-subtree memo shares the
+    subtrees over it as it did before the cut (q4's six ``year_total``
+    unions, each merging its string dictionaries on the host)."""
+    if isinstance(p, lp.DeviceResult):
+        return lp.DeviceResult(alias.get(p.key, p.key))
+    kids = p.children()
+    new = [_rename_results(k, alias) for k in kids]
+    if all(n is k for n, k in zip(new, kids)):
+        return p
+    q = copy.copy(p)
+    if hasattr(q, "child"):
+        q.child = new[0]
+    else:
+        q.left, q.right = new
+    return q
 
 
 def _host_rows(t: Table) -> list:
@@ -3370,17 +3540,29 @@ class CompilingExecutor(TorchExecutor):
     normalized text).
 
     The first run of a key discovers its size plan eagerly, at padded
-    capacities.  On CUDA the plan is then captured as one
-    ``torch.cuda.CUDAGraph`` (the analog of jaxexec's jitted program),
-    replayed once and held against discovery (``warm_replay``); every
-    later run, and every rendering with the same canonical key, writes its
-    parameters into the graph's static buffers, replays it with no host
-    sync, and reads back the guards and the result once.  On the CPU the
-    same replay runs the plan's operators at the recorded capacities
+    capacities.  A plan is cut into a parent and its segments first
+    (:func:`_cut_segments`): each segment is discovered, and compiled, as
+    a program of its own, found by its fingerprint and the binding's memo
+    signature, so a segment that several keys share (the CTE subtrees of
+    q24's and q39's parts, q88's and q96's count) is discovered once and
+    its result feeds each parent (a ``DeviceResult`` leaf); the copies of
+    a CTE that a binding makes equal share one (:func:`_seg_aliases`).  On CUDA every program is
+    then captured as one ``torch.cuda.CUDAGraph`` (the analog of
+    jaxexec's jitted programs), replayed once and held against discovery
+    (``warm_replay``); every later run, and every rendering with the same
+    canonical key, writes its parameters into the graphs' static buffers
+    and replays the segments' graphs, then the parent's, with no host
+    sync, and reads back the guards and the result once.  A parent's
+    graph reads its own copies of its segments' outputs, written between
+    the replays, so a segment's graph may be evicted or recaptured
+    without touching the parents captured over it.  On the CPU the same
+    replay runs the programs' operators at the recorded capacities
     without a capture, which is what the tests hold against the JAX
     engine.  A failed guard (a binding that outgrows a recorded capacity
-    or flips a branch) or a catalog version change rediscovers.  A capture
-    or replay error raises: nothing falls back to an eager run.
+    or flips a branch, in the parent or in a segment), a segment that was
+    rediscovered for another key, or a catalog version change
+    rediscovers the key with its segments.  A capture or replay error
+    raises: nothing falls back to an eager run.
 
     An entry is found by the key and the binding's memo signature
     (:func:`_memo_signature`): a replay runs the memo sharing its
@@ -3389,23 +3571,28 @@ class CompilingExecutor(TorchExecutor):
     discovered at its first run, and two such bindings never evict each
     other.
 
-    Captured graphs keep their memory pools.  Their bytes are held under
-    ``graph_budget``, half the free device memory at the first capture:
-    before a capture the least recently used graphs are
-    evicted, keeping their size plans, so a later run recaptures without
-    rediscovery.  An eager or discovery run that runs out of device
-    memory while graphs are held evicts them all and runs once more.
+    Captured graphs keep their memory pools.  Their bytes, and the bytes
+    of the spines a session's spine cache holds on the device
+    (``spines``), are held under ``graph_budget``, half the free device
+    memory at the first capture: before a capture the least recently used
+    graphs are evicted, keeping their size plans, so a later run
+    recaptures without rediscovery.  An eager or discovery run that runs
+    out of device memory while graphs are held evicts them all and runs
+    once more.
 
-    Counters: ``n_discoveries``, ``n_captures`` (jaxexec's
-    ``n_jit_builds``), ``n_evictions``, ``n_guard_failures``,
+    Counters: ``n_discoveries`` (of query keys), ``n_seg_discoveries``,
+    ``n_captures`` (jaxexec's ``n_jit_builds``, a graph each),
+    ``n_evictions``, ``n_guard_failures`` (rediscoveries),
     ``n_memo_sig_misses`` (discoveries of a key compiled under another
     memo signature), ``n_oom_retries`` (eager or discovery runs rerun
-    after evicting every graph) and ``n_replays``; ``n_syncs`` is 1 for a
-    replay (its one read-back).
+    after evicting every graph) and ``n_replays`` (of query keys);
+    ``n_syncs`` is 1 for a replay (its one read-back).
     """
 
     # bump when the pickle layout of save_compile_records changes
-    _REC_FORMAT = 2
+    # (3: segments, under "\x00segments", and each parent's segment slots
+    # and aliases)
+    _REC_FORMAT = 3
 
     def __init__(self, catalog, device, groupby: str = GROUPBY_DEFAULT):
         super().__init__(catalog, device, groupby=groupby)
@@ -3416,8 +3603,15 @@ class CompilingExecutor(TorchExecutor):
         # that run
         self.warm_replay = self.capture
         self.graph_budget: Optional[int] = None     # set at first capture
+        # the session's spine cache, whose device bytes share the budget
+        self.spines = None
         # (key, memo signature) -> compiled plan
         self._compiled: Dict[tuple, _CompiledPlan] = {}
+        # (_seg_argname(fingerprint), memo signature) -> compiled segment
+        self._seg_compiled: Dict[tuple, _CompiledPlan] = {}
+        # the segment results the DeviceResult leaves of the running
+        # plan read: fingerprint -> DTable
+        self._seg_inputs: Dict[str, DTable] = {}
         # entries that hold a graph, least recently used first
         self._graphs: "collections.OrderedDict[tuple, _CompiledPlan]" = \
             collections.OrderedDict()
@@ -3427,6 +3621,7 @@ class CompilingExecutor(TorchExecutor):
         self._exec_lock = threading.RLock()
         self._key_latch = KeyedLatch()
         self.n_discoveries = 0
+        self.n_seg_discoveries = 0
         self.n_captures = 0
         self.n_evictions = 0
         self.n_guard_failures = 0
@@ -3442,6 +3637,27 @@ class CompilingExecutor(TorchExecutor):
         with self._exec_lock:
             return self._with_memory(
                 lambda: TorchExecutor.execute_to_host(self, p))
+
+    def materialize(self, p: lp.Plan) -> Table:
+        """Run ``p`` eagerly and keep its result on the device: a table
+        whose columns are device tensors (a spine for
+        :mod:`ndstpu_torch.engine.spine`), with the device table a plan
+        that splices it reads, so that a replay reads it with no host
+        copy."""
+        def run():
+            self._begin(p, "eager")
+            try:
+                dt = self.compact(self.execute(p))
+                n = int(dt.alive.sum())
+            finally:
+                self._end()
+            t = Table({name: Column(c.data[:n], c.ctype, c.valid[:n],
+                                    c.dictionary)
+                       for name, c in dt.columns.items()})
+            t.device_table = to_device(t, self.device)
+            return t
+        with self._exec_lock:
+            return self._with_memory(run)
 
     def execute_cached(self, p: lp.Plan, key: str,
                        params: Optional[ex.ParamBinding] = None,
@@ -3482,13 +3698,14 @@ class CompilingExecutor(TorchExecutor):
         try:
             result = self._replay_query(cp, params)
         except _Drift:
-            if not cp.preloaded:
+            if not any(g.preloaded for g in cp.programs):
                 raise
             result = None       # a stale record from disk
         if result is None:
             return self._forget_and_rediscover(p, slot, versions, params,
                                                sql)
-        cp.preloaded = False
+        for g in cp.programs:
+            g.preloaded = False
         return result
 
     def where_mask(self, table: str, e: ex.Expr) -> torch.Tensor:
@@ -3525,25 +3742,54 @@ class CompilingExecutor(TorchExecutor):
                     del self._graphs[slot]
                     cp.drop_graph()
 
-    def forget(self, key: str) -> None:
-        """Drop ``key``'s compiled plans and their graphs: the key's next
-        run discovers again."""
-        for slot in [s for s in self._compiled if s[0] == key]:
-            self._drop(slot)
+    def release_spine(self, table) -> None:
+        """Let go of every compiled plan, and its graph, that splices the
+        spine ``table``: the plan holds the table's tensors and the graph
+        their addresses, so only this frees an evicted spine's memory.  A
+        parent reading a dropped segment rediscovers at its next run."""
+        with self._exec_lock:
+            for store in (self._compiled, self._seg_compiled):
+                for slot, cp in list(store.items()):
+                    if any(_reads_table(g.plan, table)
+                           for g in cp.programs):
+                        store.pop(slot)
+                        if self._graphs.pop(slot, None) is not None:
+                            cp.drop_graph()
 
-    def _drop(self, slot: tuple) -> None:
+    def forget(self, key: str) -> None:
+        """Drop ``key``'s compiled plans, their segments and their
+        graphs: the key's next run discovers again."""
+        for slot in [s for s in self._compiled if s[0] == key]:
+            self._drop(slot, segments=True)
+
+    def _drop(self, slot: tuple, segments: bool = False) -> None:
         cp = self._compiled.pop(slot, None)
-        if cp is not None and self._graphs.pop(slot, None) is not None:
+        if cp is None:
+            return
+        if self._graphs.pop(slot, None) is not None:
             cp.drop_graph()
+        if segments:
+            # only the segments it holds: one that another key has
+            # rediscovered since stays, for this key to share again
+            for s in cp.segs or ():
+                if self._seg_compiled.get(s.slot) is s:
+                    self._drop_segment(s.slot)
+
+    def _drop_segment(self, slot: tuple) -> None:
+        scp = self._seg_compiled.pop(slot, None)
+        if scp is not None and self._graphs.pop(slot, None) is not None:
+            scp.drop_graph()
 
     def _forget_and_rediscover(self, p, slot, versions, params, sql
                                ) -> Table:
         self.n_guard_failures += 1
         warnings.warn(
-            f"compiled plan invalidated (a replay guard failed or a "
-            f"preloaded record drifted); rediscovering "
-            f"{slot[0].split('|', 1)[-1][:80]!r}", stacklevel=3)
-        self._drop(slot)
+            f"compiled plan invalidated (a replay guard failed, a segment "
+            f"was rediscovered, or a preloaded record drifted); "
+            f"rediscovering {slot[0].split('|', 1)[-1][:80]!r}",
+            stacklevel=3)
+        # its segments go too (jaxexec): a guard may have failed in one
+        self._drop(slot, segments=True)
         return self._discover_query(p, slot, versions, params, sql)
 
     # -- discovery ---------------------------------------------------------------
@@ -3555,21 +3801,38 @@ class CompilingExecutor(TorchExecutor):
         # replay) is cold-path cost a steady-state run never pays: the
         # harness's per-query split reads it as compile_s
         with obs.span("discover_query", cat="plan-node",
-                      bucket="compile_s"):
+                      bucket="compile_s", n_segments=0) as sp:
             obs.inc("engine.discoveries")
             return self._discover_query_traced(p, slot, versions, params,
-                                               sql)
+                                               sql, sp)
 
     def _discover_query_traced(self, p: lp.Plan, slot: tuple, versions,
                                params: Optional[ex.ParamBinding],
-                               sql: Optional[str]) -> Table:
+                               sql: Optional[str], sp) -> Table:
         t0 = time.perf_counter()
-        cp, host = self._with_memory(
-            lambda: self._discover(p, slot, versions, params))
+        parent, cut = _cut_segments(p)
+        alias = _seg_aliases(cut, params.values if params is not None
+                             else None)
+        sp.set(n_segments=len(cut) - len(alias))
+        segs, inputs, syncs = [], {}, 0
+        for fp, sub in cut.items():
+            if fp in alias:
+                continue
+            scp, inputs[fp] = self._segment(fp, sub, versions, params)
+            segs.append(scp)
+            syncs += self.n_syncs
+        parent = _rename_results(parent, alias)
+        cp, dt = self._with_memory(
+            lambda: self._discover(parent, slot, versions, params, inputs))
+        syncs += self.n_syncs
+        host = to_host(dt)
+        del dt, inputs
+        self.n_discoveries += 1
+        cp.seg_fps = [fp for fp in cut if fp not in alias]
+        cp.segs, cp.seg_alias = segs, alias
         cp.discover_s = time.perf_counter() - t0
         cp.source_sql = sql
         self._compiled[slot] = cp
-        syncs = self.n_syncs
         if self.warm_replay:
             got = self._replay_query(cp, params, bucket="compile_s")
             if got is None:
@@ -3584,12 +3847,72 @@ class CompilingExecutor(TorchExecutor):
         self.n_syncs = syncs
         return host
 
+    def _segment(self, fp: str, sub: lp.Plan, versions,
+                 params: Optional[ex.ParamBinding]):
+        """A parent's discovery asks for its segment ``fp``:
+        ``(compiled segment, its result as a DTable)``.  A segment
+        compiled for another key (or another part) replays for its values
+        (jaxexec's ``_replay_one``); a new one, one whose catalog versions
+        changed, or one whose guards fail under this binding, discovers."""
+        values = params.values if params is not None else None
+        sslot = (_seg_argname(fp), _memo_signature(sub, values))
+        scp = self._seg_compiled.get(sslot)
+        if scp is not None and scp.versions != versions:
+            self._drop_segment(sslot)
+            scp = None
+        if scp is not None:
+            obs.inc("engine.cache.seg_compiled.hit")
+            try:
+                dt = self._with_memory(
+                    lambda: self._segment_values(scp, params))
+            except _Drift:
+                if not scp.preloaded:
+                    raise
+                dt = None       # a stale record from disk
+            if dt is not None:
+                scp.preloaded = False
+                return scp, dt
+            self._drop_segment(sslot)
+        else:
+            obs.inc("engine.cache.seg_compiled.miss")
+        scp, dt = self._with_memory(
+            lambda: self._discover(sub, sslot, versions, params))
+        scp.scalar_slots = frozenset(_scalar_slots(sub))
+        self.n_seg_discoveries += 1
+        self._seg_compiled[sslot] = scp
+        return scp, dt
+
+    def _segment_values(self, scp: _CompiledPlan,
+                        binding: Optional[ex.ParamBinding]
+                        ) -> Optional[DTable]:
+        """Replay one segment alone (on CUDA its graph) under
+        ``binding``: its result, copied out of the graph's buffers, or
+        None when one of its guards failed."""
+        for name in scp.table_cols or ():
+            self._table_device(name)
+        values = binding.values if binding is not None else None
+        if not self.capture:
+            out, alive, ok = self._replay_run(
+                scp, self._host_args(scp, binding), values)
+        else:
+            if not self._ready([scp], binding, values):
+                return None
+            scp.graph.replay()
+            out, alive, ok = scp.outputs
+            out = {n: (d.clone(), v.clone()) for n, (d, v) in out.items()}
+            alive = alive.clone()
+        self.n_syncs = 1
+        if not bool(ok):
+            return None
+        return self._seg_dtable(scp, out, alive)
+
     def _discover(self, p: lp.Plan, slot: tuple, versions,
-                  params: Optional[ex.ParamBinding]):
+                  params: Optional[ex.ParamBinding],
+                  segs: Optional[Dict[str, DTable]] = None):
         """One eager run at padded capacities that records the size plan,
-        the parameter tables and the device constants: (compiled plan,
-        host result)."""
-        self.n_discoveries += 1
+        the parameter tables and the device constants, over the results
+        of the segments the plan reads (``segs``): (compiled plan,
+        compacted device result)."""
         rec: list = []
         consts: list = []
         pspec: list = []
@@ -3602,26 +3925,29 @@ class CompilingExecutor(TorchExecutor):
             base = torch.cuda.memory_allocated(self.device)
         self._begin(p, "discover", values)
         self._rec = rec
+        self._seg_inputs = segs or {}
         try:
             with _params_bound(pctx), \
                     _consts_bound(_ConstRecord(consts, replay=False)):
                 # compacted to the result's own class: replay reads back
-                # every output column at this capacity
+                # every output column (or hands its parents every column)
+                # at this capacity
                 dt = self.compact(self.execute(p))
-            host = to_host(dt)
         finally:
             self._end()
             self._rec = None
+            self._seg_inputs = {}
         cp = _CompiledPlan(slot[0], p, rec, versions, memo_sig=slot[1],
                            table_cols=_scan_columns(p),
                            out_meta=[(n, c.ctype, c.dictionary, c.bounds)
                                      for n, c in dt.columns.items()],
                            param_spec=pspec, consts=consts,
-                           memo_hits=self.n_memo_hits)
+                           memo_hits=self.n_memo_hits,
+                           out_capacity=dt.capacity)
         if self.capture:
             cp.peak_bytes = torch.cuda.max_memory_allocated(self.device) \
                 - base
-        return cp, host
+        return cp, dt
 
     def _with_memory(self, run):
         """``run()``; on CUDA, once more after evicting every graph if it
@@ -3636,19 +3962,51 @@ class CompilingExecutor(TorchExecutor):
         self._evict(len(self._graphs))
         return run()
 
+    def _exec_deviceresult(self, p: lp.DeviceResult) -> DTable:
+        """A segment's result (jaxexec._exec_deviceresult): in discovery
+        the segment's eager result, in replay its replayed outputs (on
+        CUDA the parent graph's copies of them)."""
+        return self._seg_inputs[p.key]
+
+    def _exec_inlinetable(self, p: lp.InlineTable) -> DTable:
+        """A spliced table (jaxexec._exec_inlinetable): a spine keeps its
+        device table (:meth:`materialize`), which a replay reads as it
+        is; another is uploaded, at most once a table."""
+        t = p.table
+        dt = getattr(t, "device_table", None)
+        if dt is None or dt.alive.device.type != self.device.type:
+            dt = t.device_table = to_device(t, self.device)
+        return dt
+
+    @staticmethod
+    def _seg_dtable(scp: _CompiledPlan, out: dict,
+                    alive: torch.Tensor) -> DTable:
+        """A segment's replayed outputs as the DTable its parents read,
+        with exactly the metadata its discovery recorded (the parent's
+        discovery saw the same)."""
+        return DTable({name: DCol(out[name][0], out[name][1], ctype,
+                                  dictionary, bounds)
+                       for name, ctype, dictionary, bounds in scp.out_meta},
+                      alive)
+
     # -- replay ------------------------------------------------------------------
 
-    def _replay_run(self, cp: _CompiledPlan, bufs: dict, values):
+    def _replay_run(self, cp: _CompiledPlan, bufs: dict, values,
+                    segs: Optional[dict] = None):
         """The plan's operators in replay mode (on CUDA, what a capture
-        records) under a binding's ``values``, which only the memo reads:
-        ``(out, alive, ok)``, the output columns' ``(data, valid)`` by
-        name, the output alive mask and the conjunction of every guard,
-        all on the device."""
+        records) under a binding's ``values``, which only the memo reads,
+        over its segments' outputs ``segs`` (fingerprint -> (out, alive,
+        ok)): ``(out, alive, ok)``, the output columns' ``(data, valid)``
+        by name, the output alive mask and the conjunction of every guard,
+        the segments' included, all on the device."""
         pctx = _ParamCtx(None, "replay", spec=cp.param_spec or [],
                          bufs=bufs)
         crec = _ConstRecord(cp.consts, replay=True)
         self._begin(cp.plan, "replay", values)
         self._rec, self._pos, self._oks = cp.record, 0, []
+        self._seg_inputs = {
+            fp: self._seg_dtable(s, *segs[fp][:2])
+            for fp, s in zip(cp.seg_fps or (), cp.segs or ())}
         try:
             with _params_bound(pctx), _consts_bound(crec):
                 dt = self.compact(self.execute(cp.plan))
@@ -3660,49 +4018,61 @@ class CompilingExecutor(TorchExecutor):
             want = [(n, ct) for n, ct, _d, _b in cp.out_meta]
             if [(n, c.ctype) for n, c in dt.columns.items()] != want:
                 raise _Drift("size-plan drift (output columns)")
+            oks = self._oks + [segs[fp][2] for fp in cp.seg_fps or ()]
             ok = torch.ones((), dtype=torch.bool, device=self.device)
-            if self._oks:
-                ok = torch.stack([o.reshape(()) for o in self._oks]).all()
+            if oks:
+                ok = torch.stack([o.reshape(()) for o in oks]).all()
             out = {n: (c.data, c.valid) for n, c in dt.columns.items()}
             return out, dt.alive, ok
         finally:
             self._end()
             self._rec = self._oks = None
+            self._seg_inputs = {}
 
     def _replay_query(self, cp: _CompiledPlan,
                       binding: Optional[ex.ParamBinding],
                       bucket: str = "execute_s") -> Optional[Table]:
         """Replay ``cp`` under ``binding`` (one of its memo signature): on
-        CUDA its graph (captured now if it has none), on the CPU its
-        operators.  One read-back of the guards and the result; None when
-        a guard failed.  The replay's time goes to ``bucket`` of the
-        harness's per-query split: ``compile_s`` for discovery's checked
-        first replay, ``execute_s`` otherwise."""
-        with obs.span("replay", cat="plan-node", bucket=bucket):
+        CUDA its segments' graphs and its own (each captured now if it has
+        none), on the CPU their operators.  One read-back of the guards
+        and the result; None when a guard failed or a segment it was
+        discovered over is gone.  The replay's time goes to ``bucket`` of
+        the harness's per-query split: ``compile_s`` for discovery's
+        checked first replay, ``execute_s`` otherwise."""
+        with obs.span("replay", cat="plan-node", bucket=bucket,
+                      n_programs=len(cp.programs)):
             return self._replay_query_traced(cp, binding)
 
     def _replay_query_traced(self, cp: _CompiledPlan,
                              binding: Optional[ex.ParamBinding]
                              ) -> Optional[Table]:
-        # the plan's tables go to the device first (jaxexec's _build_jit
+        for s in cp.segs or ():
+            if self._seg_compiled.get(s.slot) is not s:
+                obs.inc("engine.cache.seg_compiled.miss")
+                return None     # rediscovered for another key, or dropped
+        # the plans' tables go to the device first (jaxexec's _build_jit
         # uploads them before it traces): an upload reads the columns'
         # bounds back to the host, which a capture cannot, and a preloaded
         # record's first run captures before any discovery uploaded them
-        for name in cp.table_cols or ():
-            self._table_device(name)
+        for g in cp.programs:
+            for name in g.table_cols or ():
+                self._table_device(name)
         values = binding.values if binding is not None else None
-        args = _param_args_np(cp.param_spec, binding)
         if not self.capture:
+            segs = {fp: self._replay_run(s, self._host_args(s, binding),
+                                         values)
+                    for fp, s in zip(cp.seg_fps or (), cp.segs or ())}
             out, alive, ok = self._replay_run(
-                cp, {k: torch.as_tensor(v) for k, v in args.items()},
-                values)
+                cp, self._host_args(cp, binding), values, segs)
             host = [ok, alive] + [t for n in out for t in out[n]]
         else:
-            if cp.graph is None:
-                self._capture(cp, args, values)
-            elif not self._write_params(cp, args):
+            if not self._ready(cp.programs, binding, values):
                 return None
-            self._graphs.move_to_end(cp.slot)
+            for fp, s in zip(cp.seg_fps or (), cp.segs or ()):
+                s.graph.replay()
+                for dst, src in zip(_flat(cp.seg_bufs[fp]),
+                                    _flat(s.outputs)):
+                    dst.copy_(src)
             cp.graph.replay()
             out, alive, ok = cp.outputs
             host = cp.host_out
@@ -3724,6 +4094,37 @@ class CompilingExecutor(TorchExecutor):
                                 dictionary)
         return Table(cols)
 
+    @staticmethod
+    def _args(cp: _CompiledPlan,
+              binding: Optional[ex.ParamBinding]) -> dict:
+        """``cp``'s host arguments under ``binding``; a segment's take the
+        scalars its own plan reads, whichever parent's binding it is."""
+        return _param_args_np(cp.param_spec, binding, cp.scalar_slots)
+
+    def _host_args(self, cp: _CompiledPlan,
+                   binding: Optional[ex.ParamBinding]) -> dict:
+        return {k: torch.as_tensor(v)
+                for k, v in self._args(cp, binding).items()}
+
+    def _ready(self, graphs: list, binding, values) -> bool:
+        """Give each of ``graphs`` (one replay's programs, segments
+        first) its graph and this binding's parameters, capturing those
+        that have none together (:meth:`_capture`); False when a binding
+        does not fit a recorded graph's buffers.  None of them is evicted
+        to make room for another."""
+        missing = []
+        for g in graphs:
+            if g.graph is None:
+                missing.append(g)
+            elif not self._write_params(g, self._args(g, binding)):
+                return False
+        if missing:
+            self._capture(missing, binding, values,
+                          keep={g.slot for g in graphs})
+        for g in graphs:
+            self._graphs.move_to_end(g.slot)
+        return True
+
     def _write_params(self, cp: _CompiledPlan, args: dict) -> bool:
         """Copy one binding's host arguments into the graph's buffers;
         False when one has another shape (an IN-list that coerced to
@@ -3735,45 +4136,54 @@ class CompilingExecutor(TorchExecutor):
             cp.bufs[k].copy_(torch.as_tensor(v))
         return True
 
-    def _capture(self, cp: _CompiledPlan, args: dict, values) -> None:
-        """Capture ``cp``'s replay as a CUDA graph (jaxexec._build_jit):
-        static parameter buffers, the kernel's aux words and pinned
-        read-back buffers are made outside the capture; the least
-        recently used graphs are evicted first to make room for this
-        one's pool (discovery's temporaries predict it), and all of them
-        if the capture still runs out of device memory, before its one
+    def _capture(self, graphs: list, binding, values, keep) -> None:
+        """Capture ``graphs`` (the programs of one replay that have no
+        graph, in replay order) as CUDA graphs (jaxexec._build_jit), all
+        in one memory pool: they replay one after another on one stream,
+        and each program's outputs are read (a segment's copied into its
+        parent's buffers) before the next replays, so a later capture may
+        take an earlier one's freed temporaries and a query's segments
+        cost about the memory of its one graph.  Static parameter
+        buffers, the kernel's aux words and pinned read-back buffers are
+        made outside the captures.  The least recently used graphs (none
+        of ``keep``) are evicted first to make room (the largest
+        discovery's temporaries predict the pool), and all of them but
+        ``keep`` if a capture still runs out of device memory, before one
         retry."""
         # a capture is the port's counterpart of jaxexec's jit build
-        obs.inc("engine.jit_builds")
-        with obs.span("capture", cat="plan-node", bucket="compile_s"):
+        obs.inc("engine.jit_builds", len(graphs))
+        with obs.span("capture", cat="plan-node", bucket="compile_s",
+                      n_programs=len(graphs)):
             segsum.prepare(self.device)
-            self._make_room(cp.peak_bytes)
+            self._make_room(max(g.peak_bytes for g in graphs), keep)
             try:
-                self._capture_once(cp, args, values)
+                self._capture_pool(graphs, binding, values)
                 return
             except torch.OutOfMemoryError:
-                cp.drop_graph()
-                if not self._graphs:
+                for g in graphs:
+                    self._graphs.pop(g.slot, None)
+                    g.drop_graph()
+                if all(s in keep for s in self._graphs):
                     raise
-            self._evict(len(self._graphs))
-            self._capture_once(cp, args, values)
+            for s in [s for s in self._graphs if s not in keep]:
+                self._evict_slot(s)
+            gc.collect()
+            torch.cuda.empty_cache()
+            self._capture_pool(graphs, binding, values)
 
-    def _capture_once(self, cp: _CompiledPlan, args: dict, values) -> None:
-        cp.bufs = {k: torch.as_tensor(v).to(self.device)
-                   for k, v in args.items()}
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        before = torch.cuda.memory_reserved(self.device)
-        # The capture carves its tensors out of one arena: a block a fifth
-        # larger than discovery's temporaries, allocated into the graph's
-        # pool on its stream and freed at once, so that freed tensors
-        # merge back into it.  A capture cannot return memory to the
-        # device, and a segment for each new size fragments the pool:
-        # q93 at SF 100 on an H100 held 41.6 GB of segments for 18.7 GB
-        # of live tensors when it ran out of memory.
+    def _capture_pool(self, graphs: list, binding, values) -> None:
         pool = torch.cuda.graph_pool_handle()
         stream = torch.cuda.Stream(self.device)
-        arena = min(cp.peak_bytes * 6 // 5,
+        torch.cuda.synchronize(self.device)
+        before = torch.cuda.memory_reserved(self.device)
+        # The captures carve their tensors out of one arena: a block a
+        # fifth larger than the largest discovery's temporaries, allocated
+        # into the pool on its stream and freed at once, so that freed
+        # tensors merge back into it.  A capture cannot return memory to
+        # the device, and a segment for each new size fragments the pool:
+        # q93 at SF 100 on an H100 held 41.6 GB of segments for 18.7 GB of
+        # live tensors when it ran out of memory.
+        arena = min(max(g.peak_bytes for g in graphs) * 6 // 5,
                     torch.cuda.mem_get_info(self.device)[0] - (2 << 30))
         reserve = torch.cuda.CUDAGraph()
         with warnings.catch_warnings():
@@ -3782,16 +4192,32 @@ class CompilingExecutor(TorchExecutor):
                 if arena > 0:
                     torch.empty(arena, dtype=torch.uint8,
                                 device=self.device)
+        for g in graphs:
+            self._capture_once(g, self._args(g, binding), values, pool,
+                               stream)
+            now = torch.cuda.memory_reserved(self.device)
+            g.pool_bytes, before = now - before, now
+        del reserve
+
+    def _capture_once(self, cp: _CompiledPlan, args: dict, values, pool,
+                      stream) -> None:
+        cp.bufs = {k: torch.as_tensor(v).to(self.device)
+                   for k, v in args.items()}
+        # the parent's own buffers for its segments' outputs
+        cp.seg_bufs = {
+            fp: _empty_like(s.outputs)
+            for fp, s in zip(cp.seg_fps or (), cp.segs or ())}
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with segsum.capturing(self.device) as calls:
             cp.aux = calls.aux
             with torch.cuda.graph(graph, pool=pool, stream=stream):
-                cp.outputs = self._replay_run(cp, cp.bufs, values)
-        del reserve
+                cp.outputs = self._replay_run(cp, cp.bufs, values,
+                                              cp.seg_bufs)
         cp.capture_s = time.perf_counter() - t0
         cp.graph = graph
         cp.kernel_calls = calls.n
-        cp.pool_bytes = torch.cuda.memory_reserved(self.device) - before
         out, alive, ok = cp.outputs
         cp.host_out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                        for t in [ok, alive] +
@@ -3805,19 +4231,35 @@ class CompilingExecutor(TorchExecutor):
         """Device bytes the held graphs' pools take."""
         return sum(cp.pool_bytes for cp in self._graphs.values())
 
-    def _make_room(self, need: int) -> None:
-        """Evict least recently used graphs until the held pools plus
-        ``need`` fit the budget and the free device memory."""
-        torch.cuda.empty_cache()
+    def spine_bytes(self) -> int:
+        """Device bytes the session's spine cache holds."""
+        return self.spines.total_bytes if self.spines is not None else 0
+
+    def cache_budget(self) -> int:
+        """The bytes graphs and spines may hold together: half the free
+        device memory, fixed the first time it is asked for."""
         if self.graph_budget is None:
             self.graph_budget = torch.cuda.mem_get_info(self.device)[0] // 2
             obs.set_gauge("engine.graph_budget_bytes", self.graph_budget)
-        while self._graphs:
-            free = torch.cuda.mem_get_info(self.device)[0]
-            if self.pool_bytes() + need <= self.graph_budget and \
-                    free >= need + need // 4:
-                return
-            self._evict(1)
+        return self.graph_budget
+
+    def _make_room(self, need: int, keep=()) -> None:
+        """Evict least recently used graphs, none of ``keep``, until the
+        held pools and spines plus ``need`` fit the budget and the free
+        device memory.  The budget is counted first, and the free memory
+        read (the evicted pools returned to the device first) once the
+        count fits; an eviction here runs no garbage collection, since a
+        graph's pool goes with the graph."""
+        budget = self.cache_budget()
+        while True:
+            victim = next((s for s in self._graphs if s not in keep), None)
+            fits = self.pool_bytes() + self.spine_bytes() + need <= budget
+            if victim is None or fits:
+                torch.cuda.empty_cache()
+                if victim is None or torch.cuda.mem_get_info(
+                        self.device)[0] >= need + need // 4:
+                    return
+            self._evict_slot(victim)
 
     def evict_all(self) -> None:
         """Evict every held graph (their size plans stay)."""
@@ -3828,13 +4270,15 @@ class CompilingExecutor(TorchExecutor):
         """Drop the ``n`` least recently used graphs (their size plans
         stay) and return their pools to the device."""
         for _ in range(n):
-            _slot, cp = self._graphs.popitem(last=False)
-            cp.drop_graph()
-            self.n_evictions += 1
+            self._evict_slot(next(iter(self._graphs)))
         # a failed run's tensors may sit in reference cycles with its
         # traceback's frames
         gc.collect()
         torch.cuda.empty_cache()
+
+    def _evict_slot(self, slot: tuple) -> None:
+        self._graphs.pop(slot).drop_graph()
+        self.n_evictions += 1
 
     # -- persisted size-plan records ---------------------------------------------
 
@@ -3854,76 +4298,148 @@ class CompilingExecutor(TorchExecutor):
                     (2 ** 61 - 1)
         return (name, t.num_rows, chk)
 
+    def _record(self, cp: _CompiledPlan) -> tuple:
+        """What a saved record keeps of one program (KeyError: it reads a
+        since-dropped table)."""
+        fps = tuple(self._table_fingerprint(t)
+                    for t in sorted(cp.table_cols or ()))
+        # discovery's peak sizes a preloaded record's capture (its arena,
+        # and the room made for its pool)
+        return (cp.record, fps, cp.table_cols, cp.out_meta, cp.param_spec,
+                [h for h, _t in cp.consts], cp.memo_sig, cp.peak_bytes,
+                cp.out_capacity)
+
     def save_compile_records(self, path: str) -> int:
         """Persist discovery's size-plan records (never a graph) so that
-        a fresh process skips discovery: each record keyed by its
-        representative SQL, merged with what ``path`` already holds and
-        published atomically.  Returns the record count."""
+        a fresh process skips discovery: each parent's record keyed by its
+        representative SQL, with the slots of its segments, and each
+        segment's record once under ``"\\x00segments"``, merged with what
+        ``path`` already holds (if it has this format) and published
+        atomically.  A plan that splices a spine is not saved: its SQL
+        plans to the unspliced plan.  Returns the parent record count."""
         with self._exec_lock:
-            data = {"\x00fmt": self._REC_FORMAT}
+            segstore: dict = {}
+            data = {"\x00fmt": self._REC_FORMAT, "\x00segments": segstore}
             for cp in self._compiled.values():
-                sql = cp.source_sql or cp.key
+                if any(isinstance(n, lp.InlineTable)
+                       for g in cp.programs for n in g.plan.walk()):
+                    continue
                 try:
-                    fps = tuple(self._table_fingerprint(t)
-                                for t in sorted(cp.table_cols or ()))
+                    ent = self._record(cp)
+                    segs = {s.slot: self._record(s) + (s.scalar_slots,)
+                            for s in cp.segs or ()}
                 except KeyError:
                     continue  # references a since-dropped table
-                # discovery's peak sizes a preloaded record's capture
-                # (its arena, and the room made for its pool)
-                data[sql] = (cp.record, fps, cp.table_cols, cp.out_meta,
-                             cp.param_spec, [h for h, _t in cp.consts],
-                             cp.memo_sig, cp.peak_bytes)
+                for k, v in segs.items():
+                    segstore.setdefault(k, v)
+                data[cp.source_sql or cp.key] = ent + (
+                    [s.slot for s in cp.segs or ()], cp.seg_alias or {})
             try:
                 with open(path, "rb") as f:
                     prev = pickle.load(f)
                 if isinstance(prev, dict) and \
                         prev.get("\x00fmt") == self._REC_FORMAT:
                     for k, v in prev.items():
-                        data.setdefault(k, v)
+                        if k == "\x00segments":
+                            for sk, sv in v.items():
+                                segstore.setdefault(sk, sv)
+                        else:
+                            data.setdefault(k, v)
             except (OSError, pickle.UnpicklingError, EOFError):
                 pass        # absent or unreadable earlier file
             tmp = f"{path}.tmp.{uuid.uuid4().hex}"
             with open(tmp, "wb") as f:
                 pickle.dump(data, f)
             os.replace(tmp, path)
-            return len(data) - 1
+            return len(data) - 2
+
+    def _preloaded(self, key: str, plan: lp.Plan, ent: tuple, versions,
+                   **extra) -> Optional[_CompiledPlan]:
+        """A compiled plan from a saved record, or None when its table
+        fingerprints no longer match the catalog."""
+        (record, fps, table_cols, out_meta, pspec, hosts, memo_sig,
+         peak_bytes, out_capacity) = ent[:9]
+        try:
+            if any(self._table_fingerprint(fp[0]) != fp for fp in fps):
+                return None
+        except KeyError:
+            return None
+        return _CompiledPlan(
+            key, plan, record, versions, table_cols=table_cols,
+            out_meta=out_meta, param_spec=pspec, memo_sig=memo_sig,
+            consts=[(h, torch.as_tensor(h).to(self.device)) for h in hosts],
+            preloaded=True, peak_bytes=peak_bytes,
+            out_capacity=out_capacity, **extra)
 
     def load_compile_records(self, path: str, plan_for_key) -> int:
         """Preload records saved by :meth:`save_compile_records`.
         ``plan_for_key(sql)`` returns the plan to run for the SQL text and
-        its cache key, ``(plan, key)``, or None to skip it.  Records whose
-        table fingerprints no longer match the catalog are dropped; a
+        its cache key, ``(plan, key)``, or None to skip it.  A record of
+        another format (format 2 had no segments) is not read: its keys
+        discover again, and the next save writes this format.  Records
+        whose table fingerprints no longer match the catalog, or whose
+        plan no longer cuts into the segments they name, are dropped; a
         preloaded record is captured at its first run with no discovery,
-        and rediscovered if it drifted.  Returns the count loaded."""
+        and rediscovered if it drifted.  A segment already compiled here
+        is kept.  Returns the count loaded."""
         with open(path, "rb") as f:
             data = pickle.load(f)
         if not isinstance(data, dict) or \
                 data.get("\x00fmt") != self._REC_FORMAT:
             return 0
+        segstore = data.get("\x00segments", {})
         with self._exec_lock:
             versions = tuple(sorted(self.catalog.versions.items()))
             n = 0
             for sql, ent in data.items():
                 if sql.startswith("\x00"):
                     continue
-                (record, fps, table_cols, out_meta, pspec, hosts,
-                 memo_sig, peak_bytes) = ent
-                try:
-                    if any(self._table_fingerprint(fp[0]) != fp
-                           for fp in fps):
-                        continue
-                except KeyError:
-                    continue
                 res = plan_for_key(sql)
                 if res is None:
                     continue
                 plan, key = res
-                self._drop((key, memo_sig))
-                self._compiled[key, memo_sig] = _CompiledPlan(
-                    key, plan, record, versions, table_cols=table_cols,
-                    out_meta=out_meta, param_spec=pspec, memo_sig=memo_sig,
-                    consts=[(h, torch.as_tensor(h).to(self.device))
-                            for h in hosts],
-                    source_sql=sql, preloaded=True, peak_bytes=peak_bytes)
+                parent, cut = _cut_segments(plan)
+                seg_slots, alias = ent[9], ent[10]
+                fps = [fp for fp in cut if fp not in alias]
+                if [_seg_argname(fp) for fp in fps] != \
+                        [s[0] for s in seg_slots] or \
+                        not set(alias.values()) <= set(fps):
+                    continue    # the cut or the plan changed: rediscover
+                segs = []
+                for fp, sslot in zip(fps, seg_slots):
+                    scp = self._seg_compiled.get(sslot)
+                    if scp is None or scp.versions != versions:
+                        sent = segstore.get(sslot)
+                        scp = None if sent is None else self._preloaded(
+                            sslot[0], cut[fp], sent, versions,
+                            scalar_slots=sent[9])
+                        if scp is None:
+                            break
+                        self._drop_segment(sslot)
+                        self._seg_compiled[sslot] = scp
+                    segs.append(scp)
+                if len(segs) != len(fps):
+                    continue
+                cp = self._preloaded(key, _rename_results(parent, alias),
+                                     ent, versions, source_sql=sql,
+                                     seg_fps=fps, segs=segs, seg_alias=alias)
+                if cp is None:
+                    continue
+                self._drop(cp.slot)
+                self._compiled[cp.slot] = cp
                 n += 1
             return n
+
+
+def _flat(outputs: tuple) -> list:
+    """A program's ``(out, alive, ok)`` as a list of tensors."""
+    out, alive, ok = outputs
+    return [t for n in out for t in out[n]] + [alive, ok]
+
+
+def _empty_like(outputs: tuple) -> tuple:
+    """Buffers of ``outputs``' shapes and types, ``(out, alive, ok)``."""
+    out, alive, ok = outputs
+    return ({n: (torch.empty_like(d), torch.empty_like(v))
+             for n, (d, v) in out.items()},
+            torch.empty_like(alive), torch.empty_like(ok))

@@ -34,12 +34,16 @@ as worker threads against ONE shared
   device-level peak the admission gate enforced (``<= slots``), beside
   the stream-wall ``concurrency_timeline`` evidence.
 
+* the spine value keys that recur across the streams are flagged and a
+  shared spine-materialization cache is installed on the session
+  (:func:`_install_spine_cache`): the first stream to reach a flagged
+  spine materializes it on the device and the others splice it in.
+
 Left for later slices of the port: engine properties are recorded and none
 is applied (the JAX package's ``apply_engine_properties``, its ``spmd.*``
-and ``jax.*`` settings); ``--static_check``; the cross-stream spine cache
-(the JAX package's ``_install_spine_cache``, which waits on the port's
-spine splicing); and ``run_streams_serve`` with ``--mode serve``, which
-wait for the port's query server.
+and ``jax.*`` settings); ``--static_check``; snapshot pins; and
+``run_streams_serve`` with ``--mode serve``, which wait for the port's
+query server.
 """
 
 from __future__ import annotations
@@ -401,6 +405,7 @@ def run_streams_inproc(stream_ids: List[str], cmd_template: List[str],
         {sid: dict(qd) for sid, qd in stream_queries.items()},
         budget_s=budget_s, est_cold=est_cold, est_warm=est_warm,
         key_fn=session.canonical_key)
+    _install_spine_cache(session, stream_queries)
 
     slots = concurrent if concurrent else 1
     gate = adm.InprocAdmission(slots)
@@ -506,6 +511,48 @@ def run_streams_inproc(stream_ids: List[str], cmd_template: List[str],
     return InprocRun(rc=rc, records=records, overlap=overlap_doc,
                      results=results, errors=errors, session=session,
                      scheduler=sched, gate=gate)
+
+
+def _install_spine_cache(session, stream_queries) -> None:
+    """Flag the spine value-keys that recur across this phase's streams
+    and install the shared materialization cache on the session
+    (engine/spine.py).  Planning already happened — the StreamScheduler
+    constructor ran every text through ``session.canonical_key`` — so
+    counting candidates here reuses the plan + spine-site memos.  A key
+    occurring once shares with nobody and is not worth publishing.
+    NDSTPU_SPINES=0 disables; any defect degrades to no sharing.
+
+    On a card the spines and the captured graphs share one budget, half
+    the free device memory (``CompilingExecutor.cache_budget``): the
+    graphs are evicted to make room for the spines' bytes, and the spine
+    cache itself takes at most half of it (unless
+    NDSTPU_SPINE_BUDGET_BYTES pins its budget), so the graphs keep at
+    least a quarter of the free memory and the eager runs the other
+    half."""
+    from ndstpu_torch.engine import spine as spine_mod
+    if not spine_mod.enabled():
+        return
+    try:
+        counts: Dict[str, int] = {}
+        for qd in stream_queries.values():
+            for sql in qd.values():
+                for vk in session.spine_candidate_keys(sql):
+                    counts[vk] = counts.get(vk, 0) + 1
+        flagged = {vk for vk, n in counts.items() if n >= 2}
+        if not flagged:
+            return
+        budget, source = spine_mod.runtime_budget_bytes(session.device)
+        if source != "env" and session.device.type == "cuda":
+            budget = min(budget, session.executor.cache_budget() // 2)
+            source += ", half the graph budget"
+        session.install_spine_cache(spine_mod.SpineCache(budget, flagged))
+        obs.set_gauge("engine.spine.flagged", len(flagged))
+        obs.set_gauge("engine.spine.budget_bytes", budget)
+        print(f"[spine] {len(flagged)} shared spine(s) flagged across "
+              f"{len(stream_queries)} streams "
+              f"(budget {budget >> 20}MiB/{source})")
+    except Exception as e:  # noqa: BLE001 — sharing is an optimization
+        print(f"WARNING: spine cache not installed: {e}")
 
 
 def _write_stream_time_log(ns, res: dict, load_ms: int,

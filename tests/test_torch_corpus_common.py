@@ -19,6 +19,10 @@ scale.  The parts of ``EMPTY`` that a larger warehouse gives rows
 row.  This module holds no tests itself."""
 
 import contextlib
+import fcntl
+import os
+import shutil
+import subprocess
 
 import pytest
 import torch
@@ -84,11 +88,78 @@ def jax_catalog(cat) -> loader.Catalog:
     return out
 
 
+def _session_dir(tmp_path_factory):
+    """A directory that the test session's workers share."""
+    base = tmp_path_factory.getbasetemp()
+    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+
+
+def jax_warehouse(tmp_path_factory):
+    """The SF 0.002 warehouse of the JAX package's generator
+    (``ndstpu.datagen.driver local 0.002 2``), transcoded to parquet, as
+    the template and engine differentials read it: built once for the
+    test session (the first worker to ask builds it under a lock; nothing
+    writes it after)."""
+    root = _session_dir(tmp_path_factory) / "jax_sf0002"
+    with open(str(root) + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        wh = root / "wh"
+        if not (wh / "load.txt").exists():
+            shutil.rmtree(root, ignore_errors=True)
+            root.mkdir()
+            env = dict(os.environ, PYTHONPATH=os.getcwd())
+            subprocess.run(["python", "-m", "ndstpu.datagen.driver", "local",
+                            "0.002", "2", str(root / "raw")], check=True,
+                           env=env, stdout=subprocess.DEVNULL)
+            subprocess.run(["python", "-m", "ndstpu.io.transcode",
+                            "--input_prefix", str(root / "raw"),
+                            "--output_prefix", str(wh),
+                            "--report_file", str(wh / "load.txt")],
+                           check=True, env=env, stdout=subprocess.DEVNULL)
+    return wh
+
+
+@contextlib.contextmanager
+def shared_xla_cache(tmp_path_factory):
+    """The JAX engine's XLA compiles, in the extent of the block, kept in
+    a persistent cache that the test session's workers share (the eager
+    differentials compile many small programs, and the template and
+    engine files, over one SF 0.002 warehouse, compile many of the same
+    ones); JAX's cache settings restored after.  A hit returns the
+    executable a compile would build, so no result changes."""
+    import jax
+    from jax._src import compilation_cache
+    base = _session_dir(tmp_path_factory)
+    new = {"jax_compilation_cache_dir": str(base / "xla_cache"),
+           "jax_persistent_cache_min_compile_time_secs": 0,
+           "jax_persistent_cache_min_entry_size_bytes": 0}
+    old = {name: getattr(jax.config, name) for name in new}
+    for name, value in new.items():
+        jax.config.update(name, value)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            jax.config.update(name, value)
+        compilation_cache.reset_cache()
+
+
+def jax_reference(catalog) -> JaxSession:
+    """``Session(backend="tpu")`` over the JAX package's ``catalog``, with
+    its executor's warm-up replay off (``NDSTPU_WARM_REPLAY=0``): the
+    first run of a query returns its discovery's rows with or without it,
+    and the XLA compile of a replay whose result it drops is most of the
+    JAX engine's time in these tests."""
+    sess = JaxSession(catalog, backend="tpu")
+    sess._jax_executor().warm_replay = False
+    return sess
+
+
 def make_sessions(scale: float, seed: int):
     """(JAX session, port session) over one generated warehouse."""
     cat = datagen.generate(scale, seed=seed, device="cpu")
-    return JaxSession(jax_catalog(cat), backend="tpu"), Session(
-        cat, device="cpu")
+    return jax_reference(jax_catalog(cat)), Session(cat, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -160,9 +231,9 @@ def replays_without_sync(exe):
     read-back after a replay is outside it)."""
     run, kernel = exe._replay_run, segsum.segment_sum_decimal
 
-    def guarded(cp, bufs, values):
+    def guarded(cp, bufs, values, segs=None):
         with NoHostSync():
-            return run(cp, bufs, values)
+            return run(cp, bufs, values, segs)
 
     def stand_in(*args):
         with torch._C.DisableTorchFunction():

@@ -12,11 +12,11 @@ import os
 import subprocess
 
 from ndstpu.check import check_build
-from ndstpu.engine.session import Session as JaxSession
 from ndstpu.io import loader
 from ndstpu_torch import datagen
 from ndstpu_torch.engine.session import Session
 from ndstpu_torch.io.catalog import Catalog
+from test_torch_corpus_common import jax_reference
 
 SCALE = 0.01
 SEED = 1
@@ -50,8 +50,7 @@ def fork_jax(cat: loader.Catalog) -> loader.Catalog:
 
 def sessions(cat: Catalog, jcat: loader.Catalog):
     """(JAX session, port session) over forks of one warehouse."""
-    return (JaxSession(fork_jax(jcat), backend="tpu"),
-            Session(fork(cat), device="cpu"))
+    return (jax_reference(fork_jax(jcat)), Session(fork(cat), device="cpu"))
 
 
 def ndsgen_refresh(out_dir, sf: float = SCALE, update: int = UPDATE):

@@ -9,14 +9,10 @@ row by row, in order where the query fixes one.  Tolerance: bit-exact for
 int, decimal, date and string columns; 1e-5 relative for float columns
 (``tests/test_jaxexec.py::assert_tables_match``, the nds_validate rule)."""
 
-import os
-import subprocess
-
 import numpy as np
 import pytest
 
 from ndstpu.engine import jaxexec
-from ndstpu.engine.session import Session as JaxSession
 from ndstpu.io import loader
 from ndstpu.queries import streamgen
 from ndstpu_torch import carry
@@ -26,23 +22,15 @@ from ndstpu_torch.ops import segsum
 from ndstpu_torch.queries import STORE_QUERIES
 # the JAX engine's own differential rule (row order, NULLs, float epsilon)
 from test_jaxexec import assert_tables_match
+from test_torch_corpus_common import (jax_reference, jax_warehouse,
+                                      shared_xla_cache)
 
 FAMILY = ("query3", "query42", "query52", "query55")
 
 
 @pytest.fixture(scope="module")
 def warehouse(tmp_path_factory):
-    data = tmp_path_factory.mktemp("raw")
-    wh = tmp_path_factory.mktemp("wh")
-    env = dict(os.environ, PYTHONPATH=os.getcwd())
-    subprocess.run(["python", "-m", "ndstpu.datagen.driver", "local", "0.002",
-                    "2", str(data)], check=True, env=env)
-    subprocess.run(["python", "-m", "ndstpu.io.transcode",
-                    "--input_prefix", str(data),
-                    "--output_prefix", str(wh),
-                    "--report_file", str(wh / "load.txt")],
-                   check=True, env=env, stdout=subprocess.DEVNULL)
-    return wh
+    return jax_warehouse(tmp_path_factory)
 
 
 def _plain_values(tables):
@@ -60,8 +48,9 @@ def catalogs(warehouse):
 
 
 @pytest.fixture(scope="module")
-def jax_sess(catalogs):
-    return JaxSession(catalogs[0], backend="tpu")
+def jax_sess(catalogs, tmp_path_factory):
+    with shared_xla_cache(tmp_path_factory):
+        yield jax_reference(catalogs[0])
 
 
 @pytest.fixture(scope="module")

@@ -79,8 +79,12 @@ def runs(tmp_path_factory):
     # the JAX runs take most of the time: they run beside the port's
     (root / "jax").mkdir()
     with open(root / "jax" / "log.txt", "w") as log:
-        procs = [_jax_power(env, *args("jax"), log=log),
-                 _jax_power(env, *args("jax", budget=True), log=log)]
+        # the JAX engine's warm-up replay off: a query's first run returns
+        # its discovery's rows either way (test_torch_corpus_common
+        # .jax_reference)
+        jax_env = dict(env, NDSTPU_WARM_REPLAY="0")
+        procs = [_jax_power(jax_env, *args("jax"), log=log),
+                 _jax_power(jax_env, *args("jax", budget=True), log=log)]
         try:
             with pytest.MonkeyPatch.context() as mp:
                 mp.setenv("NDSTPU_POWER_QUERY_TIMEOUT_S", "600")
