@@ -132,7 +132,30 @@ non-zero:
     stream, each generating the warehouse at ``CHECK_SCALE``: it must
     exit 0 with every part ``Completed``, ``segsum_decimal`` launched in
     each process, and one admission slot;
-14. maintenance: (a) at ``CHECK_SCALE`` the whole warehouse and refresh
+14. serve: (a) ``python -m ndstpu_torch.harness.serve server`` in a
+    process of its own, generating the warehouse at ``CORPUS_SCALE`` on
+    the card and preloading a copy of phase 12's compile records; streams
+    1 and 2 cut to ``SERVE_PARTS`` (the process mode's parts and six whose
+    graphs call ``segsum_decimal`` at that scale) through ``python -m
+    ndstpu_torch.harness.throughput 1,2 --mode serve``, one connection a
+    stream: every query executed, then each rendering asked again must
+    answer phase 13's rows for it (ints, decimals, dates and strings
+    exact, floats within 1e-5 relative).  One line: the phase's seconds,
+    each stream's wall, the server's ``stats`` (discoveries, captures,
+    evictions, pins, sheds, retries, failovers), the SLO percentiles, its
+    peak device memory and its ``segsum_decimal`` launches.  (b) At
+    ``CHECK_SCALE``, the four fates of ``scripts/serve_smoke.py``, each
+    server a process: clean, three streams of ``PROCESS_PARTS`` at once;
+    ``serve.dispatch`` transient faults the client retries through;
+    SIGTERM with a query in flight (it is answered, the server exits 0
+    and journals its clean shutdown); SIGKILL with a query in flight and
+    a warm restart (the retried query answered, a seen key with no
+    discovery).  Then a 2-replica fleet (``python -m
+    ndstpu_torch.harness.serve fleet``) with the replica a client uses
+    SIGKILLed under it: the client fails over and the supervisor restarts
+    the replica.  Every answer of (b) equals phase 10's compiled run of
+    the same rendering, each held against an eager run there;
+15. maintenance: (a) at ``CHECK_SCALE`` the whole warehouse and refresh
     set 1 generated on the card and copied to the host; q3, q5 and q80
     run on the card (captured); the 11 data-maintenance functions
     (``ndstpu_torch.harness.maintenance``'s helpers, each under a
@@ -156,15 +179,17 @@ non-zero:
     device bytes held beyond the live tables (under 1 GiB: no replaced
     table outlives its last user).
 
-Phases 5, 6, 7, 8, 9, 11, 12, 13 and 14 (a) are the main paths: the kernel
-launch counts (``segsum.LAUNCHES``, the wrapper's own, and
+Phases 5, 6, 7, 8, 9, 11, 12, 13, 14 and 15 (a) are the main paths: the
+kernel launch counts (``segsum.LAUNCHES``, the wrapper's own, and
 ``segsum.REPLAY_LAUNCHES``, those of graph replays, counted by
 ``torch.profiler`` from the card's kernel events in the replays it
 profiles) are set to 0 just before each and read just after, and every
-kernel each path runs must have launched.  The runs of phases 12 and
-13 (b) are processes of their own: their launches are the wrapper's,
+kernel each path runs must have launched.  The runs of phases 12, 13 (b)
+and 14 are processes of their own: their launches are the wrapper's,
 which each run's metrics sidecar carries
-(``kernel.segsum_decimal.launches``).
+(``kernel.segsum_decimal.launches``), as does each query server's
+``stats`` answer (a graph's replays launch the kernel inside the graph;
+the wrapper counts the calls it makes itself, discovery's).
 Then one JSON line of kernels, and last the result line ``{"ok": true,
 "device": {...}}``.
 
@@ -190,6 +215,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1626,9 +1652,11 @@ def corpus_check(segsum, scale: float, seed: int, card: str) -> dict:
     sharing stream 0's canonical key, it must replay with no discovery
     unless a guard failed; it must equal an eager run of its own text.
     Then the parts of streams 1 and 2 that splice a shared spine, spliced
-    on the card against the CPU (``spine_check``).  Returns the largest
-    error, the number of calls and the inputs of the call with the most
-    rows, and the parts whose card runs called the kernel."""
+    on the card against the CPU (``spine_check``).  Last, the serve
+    phase's references: streams 0, 1 and 2 of ``PROCESS_PARTS``, each
+    held against an eager run.  Returns the largest error, the number of
+    calls and the inputs of the call with the most rows, the parts whose
+    card runs called the kernel, and those references."""
     from ndstpu_torch import datagen
     from ndstpu_torch.engine.plan import fixes_order
     from ndstpu_torch.engine.session import Session
@@ -1718,6 +1746,17 @@ def corpus_check(segsum, scale: float, seed: int, card: str) -> dict:
                              f"under a shared key with neither a guard "
                              f"failure nor another memo signature: {bad}")
     spine_check(on_card, on_cpu, card)
+    # the serve phase's references at this scale: streams 0, 1 and 2 of
+    # the process mode's parts, each held against an eager run
+    t1 = time.time()
+    out["serve_refs"] = {}
+    for sid in ("0", "1", "2"):
+        texts = dict(streamgen.render_power_corpus(streamgen.BENCH_RNGSEED,
+                                                   int(sid)))
+        out["serve_refs"].update(serve_references(
+            on_card, {n: texts[n] for n in PROCESS_PARTS}, eager=True))
+    say("corpus check serve references", parts=len(out["serve_refs"]),
+        seconds=time.time() - t1, card=card)
     return out
 
 
@@ -1804,8 +1843,8 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
     line gives its graphs (the parent and its segments), the segments it
     shares with earlier parts and their pools' bytes; the summary gives
     their sums beside those of one graph a part.  Returns the path's
-    launches (the wrapper's, the profiled replays'), that shape's record
-    and each part's rows."""
+    launches (the wrapper's, the profiled replays'), that shape's record,
+    each part's rows and the parts whose graphs call the kernel."""
     from ndstpu_torch import datagen
     from ndstpu_torch.engine import torchexec
     from ndstpu_torch.engine.session import Session
@@ -1846,6 +1885,7 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
             "shared_segments": 0, "pool_bytes": 0}
     rows = {}
     segments = set()
+    called = set()
     for name, sql in parts:
         allocated = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1876,6 +1916,8 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
                 f"{name} launched segsum_decimal at SF {scale:g} but not at "
                 f"the check's scale: its calls were not held bit-exact")
         rows[name] = table.num_rows
+        if graph_calls(cp):
+            called.add(name)
         shared = sum(1 for g in cp.segs if g.slot in segments)
         segments.update(g.slot for g in cp.segs)
         sums["cold_ms"] += cold
@@ -1912,7 +1954,7 @@ def corpus_run(segsum, scale: float, seed: int, card: str,
         graph_budget_bytes=exe.graph_budget, **sums,
         distinct_segments=len(segments), one_graph_a_part=ONE_GRAPH_CORPUS,
         card=card)
-    return launches, shape, rows
+    return launches, shape, rows, called
 
 
 POWER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_power"
@@ -2056,8 +2098,10 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
     one replay under ``torch.profiler``, whose launches must be those
     calls, held against an eager run of its plan (ints, decimals, dates
     and strings exact, floats within 1e-5 relative, in order where the
-    plan ends in a sort).  Returns the path's launches: the wrapper's in
-    the run, and the profiled replays'."""
+    plan ends in a sort).  Then the serve phase's references: each
+    rendering of ``SERVE_PARTS`` in both streams through the run's
+    session.  Returns the path's launches (the wrapper's in the run, the
+    profiled replays') and those references."""
     from ndstpu_torch import obs
     from ndstpu_torch.engine.plan import fixes_order
     from ndstpu_torch.engine.sql import normalize_sql_key
@@ -2165,7 +2209,7 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
 
     # the kernel's parts, replayed on this thread
     t1 = time.time()
-    sess, checked, wrong = run.session, {}, []
+    sess, checked, wrong, refs = run.session, {}, [], {}
     for sid in streams:
         for name, sql in texts[sid].items():
             cp = sess.compiled_plan(sql)
@@ -2190,6 +2234,8 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
             checked[f"{sid}:{name}"] = seen["launches"]
             if diff is not None:
                 wrong.append({"part": f"{sid}:{name}", **diff})
+            if name in SERVE_PARTS:
+                refs[_plain_sql(sql)] = serve_reference(sess, sql, got)
     say("throughput kernel parts", parts=checked, differ=wrong,
         replay_launches_profiled=segsum.REPLAY_LAUNCHES,
         seconds=time.time() - t1, card=card)
@@ -2199,7 +2245,15 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
     if wrong:
         raise AssertionError(f"throughput: replays differ from eager runs: "
                              f"{wrong}")
-    return wrapper, segsum.REPLAY_LAUNCHES
+    # the serve phase's references: the rest of its parts of both streams
+    t1 = time.time()
+    refs.update(serve_references(
+        sess, {f"{sid}:{n}": texts[sid][n] for sid in streams
+               for n in SERVE_PARTS
+               if _plain_sql(texts[sid][n]) not in refs}, eager=False))
+    say("throughput serve references", parts=len(refs),
+        seconds=time.time() - t1, card=card)
+    return wrapper, segsum.REPLAY_LAUNCHES, refs
 
 
 # the process mode's parts: two that call segsum_decimal at the check
@@ -2271,6 +2325,557 @@ def throughput_processes(scale: float, seed: int, card: str) -> int:
             sorted(r["returncode"] for r in overlap["streams"]) != [0, 0]:
         raise AssertionError(f"throughput processes: overlap {overlap}")
     return sum(launches.values())
+
+
+# ---------------------------------------------------------------------------
+
+
+# the serve phase's parts: every part of the process mode's, and six whose
+# graphs call segsum_decimal at the corpus scale (grouped decimal sums over
+# key domains that do not grow with the scale: channels, reasons, states,
+# categories, warehouses and ship modes)
+SERVE_PARTS = PROCESS_PARTS + ("query28", "query36", "query62", "query70",
+                               "query77", "query86")
+SERVE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
+# an answer's rows, every one (a request returns at most this many)
+SERVE_MAX_ROWS = 1_000_000
+
+
+def wire_rows(table) -> list:
+    """A result's rows as the query server's answer carries them: JSON
+    with ``default=str`` (decimals as floats, dates as strings)."""
+    return json.loads(json.dumps([list(r) for r in table.to_rows()],
+                                 default=str))
+
+
+def serve_reference(sess, sql: str, table) -> dict:
+    """What an answer to ``sql`` must hold: ``table``'s rows as the wire
+    carries them, which of its columns are floats (held within 1e-5
+    relative; the rest exact), and whether its plan fixes their order."""
+    from ndstpu_torch.engine.plan import fixes_order
+    return {"rows": wire_rows(table),
+            "floats": [c.ctype.kind == "float64"
+                       for c in table.columns.values()],
+            "ordered": fixes_order(sess.plan(sql)[0])}
+
+
+def serve_references(sess, texts: dict, eager: bool) -> dict:
+    """{plain text: reference} of each of ``texts`` ({name: sql}) through
+    ``sess.sql`` (the compiled path), each held against an eager run of
+    its plan first where ``eager``."""
+    from ndstpu_torch.engine.plan import fixes_order
+    out = {}
+    for name, sql in texts.items():
+        got = sess.sql(sql)
+        if eager:
+            plan = sess.plan(sql)[0]
+            diff = first_difference(
+                engine_rows(sess.executor.execute_to_host(plan), nulls=True),
+                engine_rows(got, nulls=True), fixes_order(plan))
+            if diff is not None:
+                raise AssertionError(f"serve reference {name}: the compiled "
+                                     f"run differs from an eager run: {diff}")
+        out[_plain_sql(sql)] = serve_reference(sess, sql, got)
+    return out
+
+
+def _wire_key(row) -> tuple:
+    return tuple((v is None, "" if v is None else type(v).__name__, v)
+                 for v in row)
+
+
+def answer_difference(ref: dict, resp: dict):
+    """None when the server's answer ``resp`` holds ``ref``'s rows (ints,
+    decimals, dates and strings exact, float columns within 1e-5
+    relative; in order where the plan fixes it, else as multisets);
+    else what differs."""
+    if resp.get("status") != "ok":
+        return {"status": resp.get("status"), "error": resp.get("error")}
+    want, got = ref["rows"], resp["data"]
+    if resp["rows"] != len(want) or len(got) != len(want) or \
+            resp.get("truncated"):
+        return {"rows": resp["rows"], "reference_rows": len(want)}
+    if not ref["ordered"]:
+        want, got = sorted(want, key=_wire_key), sorted(got, key=_wire_key)
+    for i, (a, b) in enumerate(zip(want, got)):
+        ok = len(a) == len(b) == len(ref["floats"])
+        for x, y, is_float in zip(a, b, ref["floats"]):
+            if is_float and x is not None and y is not None:
+                ok = ok and abs(x - y) <= 1e-5 * max(abs(x), abs(y)) + 1e-12
+            else:
+                ok = ok and type(x) is type(y) and x == y
+        if not ok:
+            return {"row": i, "served": repr(b), "reference": repr(a)}
+    return None
+
+
+def _serve_cmd(sock: str, scale: float, seed: int, state: Path, *extra):
+    return [sys.executable, "-m", "ndstpu_torch.harness.serve", "server",
+            "--socket", sock, "--input_prefix", "-", "--generate",
+            f"{scale:g}", "--generate_seed", str(seed), "--state_dir",
+            str(state), "--ledger", "none", *extra]
+
+
+def _fleet_cmd(run_dir: Path, scale: float, seed: int):
+    return [sys.executable, "-m", "ndstpu_torch.harness.serve", "fleet",
+            "--replicas", "2", "--run_dir", str(run_dir), "--input_prefix",
+            "-", "--generate", f"{scale:g}", "--generate_seed", str(seed),
+            "--probe_interval_s", "0.5", "--restart_backoff_s", "0.25"]
+
+
+class ServerProcs:
+    """The query server processes the serve phase starts, each logging to
+    a file of its own; ``stop_all`` kills whichever still runs (a failed
+    check must not leave a server holding the card)."""
+
+    def __init__(self):
+        self.procs = []
+
+    def start(self, cmd, log: Path, faults=None) -> subprocess.Popen:
+        env = dict(os.environ)
+        env.pop("NDSTPU_FAULTS", None)
+        if faults:
+            env["NDSTPU_FAULTS"] = faults
+        with open(log, "a") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                    env=env)
+        self.procs.append(proc)
+        return proc
+
+    def stop_all(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+
+
+def _client(sock: str, **kw):
+    from ndstpu_torch.serve.client import ServeClient
+    kw.setdefault("connect_timeout_s", 60.0)
+    return ServeClient(sock, **kw)
+
+
+def _ready(sock: str, timeout_s: float, proc=None) -> None:
+    cli = _client(sock, retries=0)
+    try:
+        t0 = time.time()
+        while time.time() - t0 < timeout_s:
+            if proc is not None and proc.poll() is not None:
+                raise AssertionError(f"the server on {sock} exited "
+                                     f"{proc.returncode} before it was ready")
+            if cli.wait_ready(5.0):
+                return
+        raise AssertionError(f"the server on {sock} was not ready within "
+                             f"{timeout_s:g} s")
+    finally:
+        cli.close()
+
+
+def _stats(sock: str) -> dict:
+    cli = _client(sock, retries=2)
+    try:
+        return cli.stats()
+    finally:
+        cli.close()
+
+
+def _stop(proc, timeout_s: float = 120.0) -> int:
+    """SIGTERM (the graceful drain) and the exit code."""
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    return proc.wait(timeout=timeout_s)
+
+
+def _journal(path: Path) -> list:
+    out = []
+    for line in path.read_text().splitlines():
+        try:
+            out.append(json.loads(line).get("event"))
+        except ValueError:
+            pass        # a torn tail from a SIGKILL
+    return out
+
+
+def _launches(stats: dict) -> int:
+    return int(stats["counters"].get("kernel.segsum_decimal.launches", 0))
+
+
+def _served_stats(stats: dict) -> dict:
+    """The serve line's view of a server's ``stats`` answer."""
+    c = stats["counters"]
+    return dict(
+        engine=stats["engine"],
+        pins=c.get("engine.snapshot.pinned", 0),
+        requests=c.get("serve.requests", 0), ok=c.get("serve.ok", 0),
+        errors=c.get("serve.errors", 0),
+        sheds=c.get("serve.overloaded", 0) + c.get("serve.rejected", 0),
+        discoveries_counter=c.get("engine.discoveries", 0),
+        captures_counter=c.get("engine.jit_builds", 0),
+        compiled_hit=c.get("engine.cache.compiled.hit", 0),
+        compiled_miss=c.get("engine.cache.compiled.miss", 0),
+        preloaded=c.get("serve.restart.preloaded_records", 0),
+        segsum_launches=_launches(stats),
+        slo={t: {k: v[k] for k in ("count", "ok", "p50_ms", "p95_ms",
+                                    "p99_ms")}
+             for t, v in stats["slo"]["tenants"].items()})
+
+
+def _serve_texts(streams, parts) -> dict:
+    """{stream: {part: sql}} of the power phase's stream files."""
+    from ndstpu_torch.harness.power import gen_sql_from_stream
+    out = {}
+    for sid in streams:
+        qd = gen_sql_from_stream(str(POWER_DIR / f"query_{sid}.sql"))
+        out[sid] = {n: qd[n] for n in parts}
+    return out
+
+
+def _ask_all(sock: str, texts: dict, refs: dict, tenant: str) -> list:
+    """Each text of ``texts`` ({stream: {part: sql}}) asked once more and
+    held against its reference; the parts that differ."""
+    cli = _client(sock, tenant=tenant, retries=8)
+    wrong = []
+    try:
+        for sid, qd in texts.items():
+            for name, sql in qd.items():
+                ref = refs.get(_plain_sql(sql))
+                if ref is None:
+                    raise AssertionError(f"serve: no reference for "
+                                         f"{sid}:{name}")
+                diff = answer_difference(
+                    ref, cli.sql(sql, max_rows=SERVE_MAX_ROWS))
+                if diff is not None:
+                    wrong.append({"part": f"{sid}:{name}", **diff})
+    finally:
+        cli.close()
+    return wrong
+
+
+def serve_run(scale: float, seed: int, card: str, refs: dict,
+              kernel_parts: set) -> int:
+    """The query server at full size: ``python -m ndstpu_torch.harness.serve
+    server`` in a process of its own, generating the warehouse at
+    ``scale`` on the card and preloading the power phase's compile records
+    (a copy: the server saves its own as it goes), then streams 1 and 2
+    cut to ``SERVE_PARTS`` through ``python -m
+    ndstpu_torch.harness.throughput 1,2 --mode serve``, one connection a
+    stream.  It must exit 0 with every query executed; then each
+    rendering asked once more must answer the throughput phase's rows for
+    it (``refs``).  One ``serve`` line: the phase's seconds, the
+    server's start, each stream's wall, the server's ``stats`` (its
+    executor's discoveries, captures, evictions, its pins, sheds, the
+    clients' retries and failovers, the SLO percentiles, peak device
+    memory, its ``segsum_decimal`` launches).  Returns those launches."""
+    import shutil
+    t0 = time.time()
+    out = SERVE_DIR / "full"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    kernel_served = sorted(set(SERVE_PARTS) & kernel_parts)
+    if len(kernel_served) < 6:
+        raise AssertionError(f"serve: only {kernel_served} of SERVE_PARTS "
+                             f"call segsum_decimal at SF {scale:g}")
+    records = out / "compile_records.pkl"
+    shutil.copy(POWER_DIR / "compile_records.pkl", records)
+    sock = f"unix:{out / 'serve.sock'}"
+    procs = ServerProcs()
+    try:
+        proc = procs.start(_serve_cmd(sock, scale, seed, out / "state",
+                                      "--compile_records", str(records)),
+                           out / "server.log")
+        _ready(sock, 600.0, proc)
+        boot_s = time.time() - t0
+        cmd = [sys.executable, "-m", "ndstpu_torch.harness.throughput",
+               "1,2", "--mode", "serve", "--serve_socket", sock,
+               "--overlap_report", str(out / "overlap.json"), "--",
+               sys.executable, "-m", "ndstpu_torch.harness.power",
+               str(POWER_DIR / "query_{}.sql"), "-",
+               str(out / "time_{}.csv"), "--generate", f"{scale:g}",
+               "--sub_queries", ",".join(SERVE_PARTS)]
+        t1 = time.time()
+        with open(out / "throughput.log", "w") as log:
+            run = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                 timeout=900)
+        streams_s = time.time() - t1
+        if run.returncode != 0:
+            tail = (out / "throughput.log").read_text()[-4000:]
+            raise AssertionError(f"serve: throughput --mode serve exited "
+                                 f"{run.returncode}:\n{tail}")
+        overlap = json.loads((out / "overlap.json").read_text())
+        wrong = _ask_all(sock, _serve_texts(("1", "2"), SERVE_PARTS), refs,
+                         "check")
+        stats = _stats(sock)
+        rc = _stop(proc)
+    finally:
+        procs.stop_all()
+    records_ = {r["stream"]: r for r in overlap["streams"]}
+    say("serve", card=card, scale=scale, streams=2, parts=list(SERVE_PARTS),
+        kernel_parts=kernel_served, seconds=time.time() - t0,
+        server_start_s=boot_s, streams_s=streams_s,
+        stream_wall_s={s: r["wall_s"] for s, r in records_.items()},
+        executed={s: r["executed"] for s, r in records_.items()},
+        failures={s: r["failures"] for s, r in records_.items()},
+        client_retries=sum(r["client_retries"] for r in records_.values()),
+        failovers=overlap.get("failovers_total", 0),
+        stream_max_concurrent=overlap["stream_max_concurrent"],
+        admitted_peak=overlap["max_concurrent"], differ=wrong,
+        exit_code=rc, **_served_stats(stats))
+    for sid in ("1", "2"):
+        r = records_.get(sid)
+        if r is None or r["returncode"] or r["failures"] or \
+                r["executed"] != len(SERVE_PARTS):
+            raise AssertionError(f"serve stream {sid}: {r}")
+    if wrong:
+        raise AssertionError(f"serve: answers differ from the throughput "
+                             f"phase's: {wrong}")
+    if rc != 0:
+        raise AssertionError(f"serve: the server's drain exited {rc}")
+    return _launches(stats)
+
+
+def serve_fates(scale: float, seed: int, card: str, refs: dict) -> int:
+    """The query server's four fates (``scripts/serve_smoke.py``) on the
+    card at ``scale``, each server a process generating the warehouse
+    (the four started together), every answer held against ``refs`` (the
+    corpus check's compiled runs of streams 0, 1 and 2, each held against
+    an eager run): (1) clean: streams 0, 1 and 2 cut to
+    ``PROCESS_PARTS`` through ``throughput --mode serve`` at once, then
+    each asked again; (2) ``serve.dispatch`` transient faults: the client
+    retries to the same answers; (3) SIGTERM with a query in flight (an
+    injected ``execute`` hang holds it): it is answered, the next request
+    gets ``draining`` (or a closed socket), the server exits 0 and
+    journals the clean-shutdown marker; (4) SIGKILL with a query in
+    flight, a restart on the same state: the retried query is answered,
+    and a key the killed server saw runs with no discovery
+    (``engine.discoveries``).  Then a 2-replica fleet (``python -m
+    ndstpu_torch.harness.serve fleet``): a client sends stream 1's parts
+    over both endpoints while the replica it uses is SIGKILLed; it fails
+    over, every answer equal, and the supervisor restarts the replica.
+    One ``serve fates`` line each.  Returns the servers' ``segsum_decimal``
+    launches."""
+    import shutil
+    import signal
+    import threading
+    from ndstpu_torch.serve import fleet
+    from ndstpu_torch.serve.client import ServerDraining
+    t0 = time.time()
+    out = SERVE_DIR / "fates"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    texts = _serve_texts(("0", "1", "2"), PROCESS_PARTS)
+    socks = {leg: f"unix:{out / (leg + '.sock')}"
+             for leg in ("clean", "faults", "term", "kill")}
+    faults = {"clean": None,
+              "faults": f"serve.dispatch:transient:1:seed{seed}:times=3",
+              "term": "execute:hang:1:times=1:hang=4",
+              # seed 0 fires the probe's second call, not its first
+              "kill": "execute:hang:0.5:seed0:times=1:hang=10"}
+    procs = ServerProcs()
+    launches = 0
+    try:
+        proc = {leg: procs.start(
+            _serve_cmd(socks[leg], scale, seed, out / f"state_{leg}"),
+            out / f"{leg}.log", faults[leg]) for leg in socks}
+        for leg in socks:
+            _ready(socks[leg], 300.0, proc[leg])
+        say("serve fates start", seconds=time.time() - t0, card=card)
+
+        # (1) clean: three streams at once, then each part asked again
+        t1 = time.time()
+        cmd = [sys.executable, "-m", "ndstpu_torch.harness.throughput",
+               "0,1,2", "--mode", "serve", "--serve_socket", socks["clean"],
+               "--overlap_report", str(out / "overlap.json"), "--",
+               sys.executable, "-m", "ndstpu_torch.harness.power",
+               str(POWER_DIR / "query_{}.sql"), "-",
+               str(out / "time_{}.csv"), "--generate", f"{scale:g}",
+               "--sub_queries", ",".join(PROCESS_PARTS)]
+        with open(out / "throughput.log", "w") as log:
+            run = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                 timeout=600)
+        overlap = json.loads((out / "overlap.json").read_text()) \
+            if run.returncode == 0 else {"streams": []}
+        wrong = _ask_all(socks["clean"], texts, refs, "check")
+        stats = _stats(socks["clean"])
+        launches += _launches(stats)
+        rc = _stop(proc["clean"])
+        say("serve fates", fate="clean", streams=3, rc=run.returncode,
+            executed={r["stream"]: r["executed"] for r in overlap["streams"]},
+            failures={r["stream"]: r["failures"] for r in overlap["streams"]},
+            stream_max_concurrent=overlap.get("stream_max_concurrent"),
+            differ=wrong, exit_code=rc, seconds=time.time() - t1,
+            **_served_stats(stats))
+        if run.returncode != 0 or wrong or rc != 0 or any(
+                r["failures"] or r["executed"] != len(PROCESS_PARTS)
+                for r in overlap["streams"]) or len(overlap["streams"]) != 3:
+            raise AssertionError("serve fates: the clean run failed")
+
+        # (2) dispatch faults: the client retries to the same answers
+        t1 = time.time()
+        cli = _client(socks["faults"], tenant="faults", retries=8)
+        try:
+            wrong = [n for n, sql in texts["1"].items() if answer_difference(
+                refs[_plain_sql(sql)], cli.sql(sql, max_rows=SERVE_MAX_ROWS))
+                is not None]
+            retried = cli.retried
+        finally:
+            cli.close()
+        stats = _stats(socks["faults"])
+        launches += _launches(stats)
+        rc = _stop(proc["faults"])
+        injected = (out / "faults.log").read_text().count(
+            "[faults] injected")
+        say("serve fates", fate="dispatch faults", client_retries=retried,
+            injected=injected, differ=wrong, exit_code=rc,
+            seconds=time.time() - t1, **_served_stats(stats))
+        if wrong or retried < 1 or not injected or rc != 0:
+            raise AssertionError("serve fates: the dispatch-fault run failed")
+
+        # (3) SIGTERM with a query in flight
+        t1 = time.time()
+        cli = _client(socks["term"], tenant="term", retries=2)
+        sql = texts["0"]["query5"]
+        got = {}
+        th = threading.Thread(target=lambda: got.update(
+            resp=cli.sql(sql, max_rows=SERVE_MAX_ROWS)), daemon=True)
+        th.start()
+        time.sleep(1.0)
+        proc["term"].send_signal(signal.SIGTERM)
+        th.join(120.0)
+        try:
+            cli.sql(texts["0"]["query3"])
+            after = "answered"
+        except (ServerDraining, OSError, ConnectionError) as e:
+            after = type(e).__name__
+        cli.close()
+        rc = proc["term"].wait(timeout=120)
+        events = _journal(out / "state_term" / "serve_journal.jsonl")
+        diff = answer_difference(refs[_plain_sql(sql)], got["resp"]) \
+            if "resp" in got else "no answer"
+        say("serve fates", fate="SIGTERM drain", in_flight="query5",
+            difference=diff, after_drain=after, exit_code=rc,
+            journal_last=events[-1:], seconds=time.time() - t1)
+        if diff is not None or after == "answered" or rc != 0 or \
+                events[-1:] != ["clean-shutdown"]:
+            raise AssertionError("serve fates: the SIGTERM drain failed")
+
+        # (4) SIGKILL with a query in flight, then a warm restart
+        t1 = time.time()
+        seen, other = texts["0"]["query80"], texts["0"]["query42"]
+        cli = _client(socks["kill"], tenant="kill")
+        first = cli.sql(seen, max_rows=SERVE_MAX_ROWS)
+        cli.close()
+        killed = {}
+        kill_cli = _client(socks["kill"], tenant="kill", retries=30,
+                           connect_timeout_s=300.0)
+        th = threading.Thread(target=lambda: killed.update(
+            resp=kill_cli.sql(other, max_rows=SERVE_MAX_ROWS)), daemon=True)
+        th.start()
+        time.sleep(1.0)
+        proc["kill"].kill()
+        proc["kill"].wait(timeout=60)
+        restarted = procs.start(
+            _serve_cmd(socks["kill"], scale, seed, out / "state_kill"),
+            out / "kill.log")
+        th.join(300.0)
+        retried = kill_cli.retried
+        kill_cli.close()
+        _ready(socks["kill"], 300.0, restarted)
+        cli = _client(socks["kill"], tenant="kill")
+        try:
+            before = cli.stats()
+            again = cli.sql(seen, max_rows=SERVE_MAX_ROWS)
+            stats = cli.stats()
+        finally:
+            cli.close()
+        launches += _launches(stats)
+        rc = _stop(restarted)
+        events = _journal(out / "state_kill" / "serve_journal.jsonl")
+        new = stats["counters"].get("engine.discoveries", 0) - \
+            before["counters"].get("engine.discoveries", 0)
+        diffs = {k: answer_difference(refs[_plain_sql(s)], r)
+                 for k, s, r in (("first", seen, first),
+                                 ("through the kill", other,
+                                  killed.get("resp", {})),
+                                 ("after the restart", seen, again))}
+        say("serve fates", fate="SIGKILL and warm restart",
+            client_retries=retried, new_discoveries=new,
+            differences=diffs, journal=events, exit_code=rc,
+            seconds=time.time() - t1, **_served_stats(stats))
+        if any(d is not None for d in diffs.values()) or retried < 1 or \
+                new != 0 or events.count("server-start") != 2 or \
+                "clean-shutdown" != events[-1]:
+            raise AssertionError("serve fates: the warm restart failed")
+
+        # a 2-replica fleet, one replica SIGKILLed under a client
+        t1 = time.time()
+        run_dir = out / "fleet"
+        eps = fleet.default_endpoints(str(run_dir), 2)
+        sup = procs.start(_fleet_cmd(run_dir, scale, seed),
+                          out / "fleet.log")
+        health_path = run_dir / fleet.FLEET_HEALTH_BASENAME
+
+        def health() -> dict:
+            try:
+                return json.loads(health_path.read_text())
+            except (OSError, ValueError):
+                return {}
+
+        def wait_health(pred, what: str, timeout_s: float = 300.0) -> dict:
+            t = time.time()
+            while time.time() - t < timeout_s:
+                if sup.poll() is not None:
+                    raise AssertionError(f"fleet: the supervisor exited "
+                                         f"{sup.returncode}")
+                doc = health()
+                if doc and pred(doc):
+                    return doc
+                time.sleep(0.5)
+            raise AssertionError(f"fleet: {what} within {timeout_s:g} s")
+
+        wait_health(lambda d: all(r["ready"] for r in d["replicas"]),
+                    "replicas not ready")
+        cli = _client(",".join(eps), tenant="fleet", retries=24)
+        answers = {}
+        names = list(texts["1"])
+        answers[names[0]] = cli.sql(texts["1"][names[0]],
+                                    max_rows=SERVE_MAX_ROWS)
+        victim = next(r for r in health()["replicas"]
+                      if r["endpoint"] == cli.endpoint.path)
+
+        def rest():
+            for n in names[1:]:
+                answers[n] = cli.sql(texts["1"][n], max_rows=SERVE_MAX_ROWS)
+
+        th = threading.Thread(target=rest, daemon=True)
+        th.start()
+        time.sleep(0.2)
+        os.kill(victim["pid"], signal.SIGKILL)
+        th.join(300.0)
+        failovers, retried = cli.failovers, cli.retried
+        cli.close()
+        doc = wait_health(
+            lambda d: all(r["ready"] for r in d["replicas"]) and any(
+                r["replica_id"] == victim["replica_id"] and r["restarts"]
+                for r in d["replicas"]), "the killed replica not restarted")
+        for ep in eps:
+            launches += _launches(_stats(ep))
+        rc = _stop(sup, 180.0)
+        wrong = [n for n in names if n not in answers or answer_difference(
+            refs[_plain_sql(texts["1"][n])], answers[n]) is not None]
+        say("serve fates", fate="fleet, a replica SIGKILLed",
+            replicas=[{k: r[k] for k in ("replica_id", "pid", "restarts",
+                                         "ready")} for r in doc["replicas"]],
+            killed=victim["replica_id"], failovers=failovers,
+            client_retries=retried, answered=len(answers), differ=wrong,
+            fleet_counters=doc["counters"], exit_code=rc,
+            seconds=time.time() - t1)
+        if wrong or failovers < 1 or rc != 0:
+            raise AssertionError("serve fates: the fleet run failed")
+    finally:
+        procs.stop_all()
+    say("serve fates summary", scale=scale, seconds=time.time() - t0,
+        segsum_launches=launches, card=card)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2841,6 +3446,7 @@ def main() -> int:
     # the check's call with the most rows checked and timed as a shape
     check = corpus_check(segsum, args.check_scale, args.seed, card)
     kernel_parts = check["kernel_parts"]
+    check_refs = check["serve_refs"]
     k["max_abs_err"] = max(k["max_abs_err"], check["max_abs_err"])
     if check["largest"] is not None:
         k["shapes"].append(decimal_shape(
@@ -2852,7 +3458,7 @@ def main() -> int:
 
     # main path 6: the whole corpus at the run scale, its kernel checked
     # and timed at the path's own inputs first
-    corpus_launches, shape, corpus_rows = corpus_run(
+    corpus_launches, shape, corpus_rows, corpus_kernel_parts = corpus_run(
         segsum, args.corpus_scale, args.seed, card, kernel_parts)
     k["shapes"].append(shape)
     k["max_abs_err"] = max(k["max_abs_err"], shape["max_abs_err"])
@@ -2872,8 +3478,8 @@ def main() -> int:
     # this process at the corpus scale; then its process mode, a power
     # process a stream, at the check scale (two warehouses and their
     # graphs at the corpus scale would not fit one card)
-    throughput_launches = throughput_run(segsum, args.corpus_scale,
-                                         args.seed, card)
+    *throughput_launches, serve_refs = throughput_run(
+        segsum, args.corpus_scale, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
     if sum(throughput_launches) == 0:
@@ -2881,7 +3487,19 @@ def main() -> int:
     process_launches = throughput_processes(args.check_scale, args.seed,
                                             card)
 
-    # main path 9: data maintenance, checked against the CPU at the check
+    # main path 9: the query server, in processes of its own: at the
+    # corpus scale against the throughput phase's answers, then its fates
+    # and a fleet at the check scale against the check's
+    serve_launches = serve_run(args.corpus_scale, args.seed, card,
+                               serve_refs, corpus_kernel_parts)
+    del serve_refs
+    serve_launches += serve_fates(args.check_scale, args.seed, card,
+                                  check_refs)
+    del check_refs
+    if serve_launches == 0:
+        raise AssertionError("the query servers launched no segsum_decimal")
+
+    # main path 10: data maintenance, checked against the CPU at the check
     # scale, then its command line at the corpus scale
     gc.collect()
     torch.cuda.empty_cache()
@@ -2901,7 +3519,7 @@ def main() -> int:
         "launches": sum(family_launches) + bench_launches[0] +
         sum(store_launches) + sum(window_launches) + sum(setop_launches) +
         sum(corpus_launches) + power_launches + sum(throughput_launches) +
-        process_launches + sum(dm_launches),
+        process_launches + serve_launches + sum(dm_launches),
         "launches_by_path": {"q3 family": sum(family_launches),
                              "bench": bench_launches[0],
                              "store slice": sum(store_launches),
@@ -2912,6 +3530,7 @@ def main() -> int:
                              "power run": power_launches,
                              "throughput": sum(throughput_launches),
                              "throughput processes": process_launches,
+                             "serve": serve_launches,
                              "maintenance check": sum(dm_launches)},
         "replay_launches_by_path": {
             "q3 family": family_launches[1], "bench": 0,

@@ -25,7 +25,16 @@ across the streams — are spliced out of its plan before it runs
 (``_splice_spines``, the JAX session's): the first query to reach one
 materializes it on the device, later queries read the cached device
 table in its place, and the spliced plan re-canonicalizes to a key of its
-own.  Snapshot pins and the SPMD backends are later slices.
+own.
+
+A query may run against a snapshot pin (:meth:`Session.pin_snapshot`, the
+JAX session's): the catalog and views as they were when the pin was
+taken.  A pin still at the live epoch runs the compiled path as any
+query does, sharing the live plan-cache entry; a pin that a later DDL or
+DML left behind plans against the pinned catalog and runs eagerly on the
+session's device over the pinned tables, with no discovery and no graph
+(the JAX session runs it on its host engine, which the port does not
+have).  The SPMD backends are a later slice.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from __future__ import annotations
 import hashlib
 import os
 import threading
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import torch
@@ -48,8 +58,32 @@ from ndstpu_torch.engine.sql import (ast, normalize_sql_key, parse_statement,
 from ndstpu_torch.engine.torchexec import (
     GROUPBY_DEFAULT,
     CompilingExecutor,
+    TorchExecutor,
     resolve_device,
 )
+from ndstpu_torch.io.catalog import Catalog
+
+
+@dataclass
+class SnapshotPin:
+    """An immutable catalog epoch captured at query admission (the JAX
+    session's).  Catalog entries are replaced, never mutated, by DML, so
+    shallow-copied dicts are a frozen, consistent view: a query planned
+    and run against this pin sees the snapshot that existed when the pin
+    was taken, whatever commits meanwhile.  The pin holds the pinned
+    tables (and on a card their device tensors) for as long as it
+    lives."""
+
+    catalog: object
+    views: Dict[str, lp.Plan]
+    views_epoch: int
+    versions: tuple  # sorted (table, version) catalog-version vector
+    epoch: Optional[str] = None
+
+    @property
+    def state(self):
+        """Cache-state tuple, the shape the live plan cache keys on."""
+        return (self.views_epoch, self.versions)
 
 
 class Session:
@@ -102,16 +136,43 @@ class Session:
         new.executor.share_tables(self.executor)
         return new
 
-    def sql(self, text: str) -> Optional[columnar.Table]:
+    def sql(self, text: str, pin: Optional[SnapshotPin] = None
+            ) -> Optional[columnar.Table]:
         """Execute one statement; returns a query's result table on the
-        host, None for DDL and DML."""
-        return self._run(parse_statement(text), normalize_sql_key(text))
+        host, None for DDL and DML.  With ``pin`` (from
+        :meth:`pin_snapshot`) a query runs against that frozen catalog
+        epoch whatever commits meanwhile; DDL or DML under a pin is an
+        error."""
+        return self._run(parse_statement(text), normalize_sql_key(text),
+                         pin)
+
+    def pin_snapshot(self) -> SnapshotPin:
+        """Freeze the current catalog epoch for a query's lifetime.  Taken
+        under the execution lock, which every DDL and DML statement holds,
+        so a pin never sees half a statement."""
+        with self._exec_lock:
+            cat = Catalog(tables=dict(self.catalog.tables),
+                          meta=dict(self.catalog.meta),
+                          versions=dict(self.catalog.versions))
+            pin = SnapshotPin(
+                catalog=cat, views=dict(self.views),
+                views_epoch=self._views_epoch,
+                versions=tuple(sorted(cat.versions.items())),
+                epoch=self.snapshot_epoch())
+        obs.inc("engine.snapshot.pinned")
+        return pin
+
+    def _pin_matches_live(self, pin: SnapshotPin) -> bool:
+        versions = tuple(sorted(self.catalog.versions.items()))
+        return pin.views_epoch == self._views_epoch \
+            and pin.versions == versions
 
     def sql_script(self, text: str) -> List[Optional[columnar.Table]]:
         """Execute each statement of a script, its queries keyless."""
         return [self._run(s) for s in parse_statements(text)]
 
-    def _run(self, stmt: ast.Node, norm: Optional[str] = None
+    def _run(self, stmt: ast.Node, norm: Optional[str] = None,
+             pin: Optional[SnapshotPin] = None
              ) -> Optional[columnar.Table]:
         # the whole statement is execute_s; the cold-path work nested in
         # it (discovery, capture) carries its own compile_s bucket, which
@@ -119,6 +180,10 @@ class Session:
         with obs.span("statement", cat="plan-node", bucket="execute_s",
                       kind=type(stmt).__name__, device=str(self.device)):
             if not isinstance(stmt, ast.Query):
+                if pin is not None:
+                    raise ValueError(
+                        "DDL/DML cannot run against a snapshot pin — pins "
+                        "are read-only views of a committed epoch")
                 with self._exec_lock:
                     return self._run_ddl(stmt)
             if norm is None:
@@ -129,8 +194,13 @@ class Session:
                     faults.check("execute", key=None)
                     out = self.executor.execute_to_host(plan)
             else:
-                plan, disp, canon = self._plan_cached(stmt, norm)
+                plan, disp, canon = self._plan_cached(stmt, norm, pin)
                 with self._exec_lock:
+                    if pin is not None and not self._pin_matches_live(pin):
+                        faults.check("execute", key=norm)
+                        out = self._run_pinned(plan, pin)
+                        return columnar.Table(
+                            dict(zip(disp, out.columns.values())))
                     if self.spine_cache is not None:
                         plan, canon = self._splice_spines(plan, canon, norm)
                     run = self._exec_args(plan, canon, norm)
@@ -139,6 +209,21 @@ class Session:
                     faults.check("execute", key=norm)
                     out = self.executor.execute_cached(*run, sql=norm)
             return columnar.Table(dict(zip(disp, out.columns.values())))
+
+    def _run_pinned(self, plan: lp.Plan, pin: SnapshotPin) -> columnar.Table:
+        """A query whose pin a later DDL or DML left behind: its plan (made
+        against the pinned catalog) run eagerly on this session's device
+        over the pinned tables.  The live executor's device copies serve
+        where the pin holds the same table version; a table replaced since
+        the pin is read from the pin's own table.  The compiled plans and
+        graphs are keyed to the live catalog, so none is used or made."""
+        exe = TorchExecutor(pin.catalog, self.device,
+                            groupby=self.executor.groupby_mode)
+        with self.executor._exec_lock:
+            exe.share_tables(self.executor)
+            # out of memory with graphs held: evict them, run once more
+            return self.executor._with_memory(
+                lambda: exe.execute_to_host(plan))
 
     def _run_args(self, stmt: "ast.Query", norm: str):
         """What ``sql`` hands the executor for a query, spines not
@@ -177,15 +262,24 @@ class Session:
         plan, cols, _disp = self._plan_fresh(stmt)
         return plan, cols
 
-    def _plan_cached(self, stmt: "ast.Query", key: str):
+    def _plan_cached(self, stmt: "ast.Query", key: str,
+                     pin: Optional[SnapshotPin] = None):
         """Plan + optimize + canonicalize through the text-keyed plan
         cache: ``(plan, display names, CanonResult or None)``.  One slot
         a text, replaced when the catalog versions change; concurrent
-        threads plan a text once (later arrivals wait on its latch)."""
+        threads plan a text once (later arrivals wait on its latch).
+
+        A pinned query plans against the pin's catalog and views and keys
+        the slot on the pin's state: a pin at the live epoch shares the
+        live entry, and a pin that fell behind replaces it (and the next
+        live run replaces it back)."""
         faults.check("plan", key=key)
         with self._plan_latch.holding(key):
-            state = (self._views_epoch,
-                     tuple(sorted(self.catalog.versions.items())))
+            if pin is not None:
+                state = pin.state
+            else:
+                state = (self._views_epoch,
+                         tuple(sorted(self.catalog.versions.items())))
             with self._cache_lock:
                 ent = self._plan_cache.get(key)
             if ent is not None and ent[0] != state:
@@ -195,7 +289,7 @@ class Session:
             if ent is not None:
                 return ent[1:]
             with obs.span("plan", cat="plan-node"):
-                plan, _cols, disp = self._plan_fresh(stmt)
+                plan, _cols, disp = self._plan_fresh(stmt, pin)
             canon = self._canonicalize(plan, key)
             with self._cache_lock:
                 self._plan_cache[key] = (state, plan, disp, canon)
@@ -350,12 +444,15 @@ class Session:
         except Exception:  # noqa: BLE001 — the analyzer, never the data
             return None
 
-    def _plan_fresh(self, stmt: "ast.Query"):
-        planner = pl.Planner(self.catalog, dict(self.views))
+    def _plan_fresh(self, stmt: "ast.Query",
+                    pin: Optional[SnapshotPin] = None):
+        cat = self.catalog if pin is None else pin.catalog
+        views = self.views if pin is None else pin.views
+        planner = pl.Planner(cat, dict(views))
         plan, cols = planner.plan_query(stmt)
         # display names: strip alias qualifiers
         disp = self._dedupe(planner._display_names(cols))
-        return optimize(plan, self.catalog), cols, disp
+        return optimize(plan, cat), cols, disp
 
     # -- DDL and DML (the JAX session's _run_ddl, _insert, _delete) ----------
 

@@ -39,11 +39,14 @@ as worker threads against ONE shared
   (:func:`_install_spine_cache`): the first stream to reach a flagged
   spine materializes it on the device and the others splice it in.
 
+The continuous-feed mode of :class:`StreamScheduler` (``open_stream``,
+``feed``, ``close``) is what the query server drives
+(:mod:`ndstpu_torch.serve.server`), one stream a connection; the
+throughput run against a server is ``throughput.run_streams_serve``.
+
 Left for later slices of the port: engine properties are recorded and none
 is applied (the JAX package's ``apply_engine_properties``, its ``spmd.*``
-and ``jax.*`` settings); ``--static_check``; snapshot pins; and
-``run_streams_serve`` with ``--mode serve``, which wait for the port's
-query server.
+and ``jax.*`` settings); and ``--static_check``.
 """
 
 from __future__ import annotations

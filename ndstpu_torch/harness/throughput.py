@@ -21,9 +21,16 @@ reference fans out concurrent spark-submit processes with
   ndstpu_torch.harness.scheduler.  Same `--concurrent` slot semantics
   (in-process gate), same overlap-report format, same time-log contract.
 
-``--mode serve`` (the JAX package's run against a query server) waits for
-the port's query server, a later slice: it exits 2 here.  Streams run on
-``cuda`` unless the wrapped power command passes ``--device cpu``::
+* ``--mode serve --serve_socket SPEC``: the same N streams as clients of
+  a running query server, or of a fleet's comma-separated endpoints
+  (``python -m ndstpu_torch.harness.serve``): each stream is one
+  connection under its own tenant, and the server decides what overlaps
+  (see :func:`run_streams_serve`).  The wrapped power command only names
+  each stream's file and ``--sub_queries``; the server holds the
+  warehouse and the device.
+
+Streams run on ``cuda`` unless the wrapped power command passes ``--device
+cpu``::
 
     python -m ndstpu_torch.harness.throughput 1,2 --concurrent 2 -- \\
         python -m ndstpu_torch.harness.power ./query_{}.sql - \\
@@ -224,6 +231,146 @@ def run_throughput(stream_ids: List[str], cmd_template: List[str],
             shutil.rmtree(lock_dir, ignore_errors=True)
 
 
+def run_streams_serve(stream_ids: List[str], cmd_template: List[str],
+                      serve_socket: str,
+                      budget_s: Optional[float] = None,
+                      overlap_report: Optional[str] = None) -> int:
+    """Route the throughput phase through a running query server.
+
+    ``cmd_template`` is the same ``{}``-placeholder power command the
+    other modes take — parsed per stream with the power CLI's parser so
+    all three modes share one argument contract — but here only the
+    stream files/subsets matter: execution, admission, and output
+    writing happen inside the server.  Each stream is one client
+    connection (= one server-side scheduler stream) under its own
+    tenant; queries go up serially per stream like a power run, and the
+    server decides what overlaps.
+
+    ``serve_socket`` may be a **fleet spec** — a comma-separated
+    endpoint list (ndstpu_torch/serve/transport.py grammar) such as a
+    FleetSupervisor's ``endpoints_spec()``.  Each stream client then
+    fails over between replicas on connection faults and sheds; the
+    overlap report records per-stream ``failovers``/``endpoint`` and
+    per-replica health attribution under ``extra.replica_health``."""
+    import threading
+
+    from ndstpu_torch.harness import power, scheduler
+    from ndstpu_torch.serve.client import ServeClient
+
+    tail = scheduler._power_tail(cmd_template)
+    parser = power.build_parser()
+    t0 = time.time()
+    records: List[dict] = []
+    rec_lock = threading.Lock()
+    health = {}
+
+    def worker(sid: str) -> None:
+        ns = parser.parse_args([a.replace("{}", sid) for a in tail])
+        qd = power.gen_sql_from_stream(ns.query_stream_file)
+        if ns.sub_queries:
+            qd = power.get_query_subset(qd, ns.sub_queries.split(","))
+        stem = os.path.splitext(
+            os.path.basename(ns.query_stream_file))[0]
+        # fleet specs get a larger attempt budget: under depth-1
+        # backpressure every replica can shed for a full service
+        # time, and the bench must ride it out rather than fail
+        n_eps = len(str(serve_socket).split(","))
+        cli = ServeClient(serve_socket, tenant=f"stream-{sid}",
+                          retries=8 if n_eps == 1 else 8 + 4 * n_eps)
+        start = time.time()
+        code = executed = failures = skipped = 0
+        obs.inc("harness.throughput.streams_launched")
+        try:
+            if not cli.wait_ready(60.0):
+                raise ConnectionError(
+                    f"server at {serve_socket} not ready")
+            for qname, sql in qd.items():
+                elapsed = time.time() - start
+                if budget_s and elapsed >= budget_s:
+                    skipped = len(qd) - executed - failures
+                    print(f"[serve-stream {sid}] budget exhausted "
+                          f"({elapsed:.1f}s >= {budget_s:g}s): "
+                          f"skipping {skipped} queries")
+                    break
+                deadline = (budget_s - elapsed) if budget_s else None
+                try:
+                    cli.sql(sql, name=f"{stem}/{qname}"
+                            if ns.output_prefix else None,
+                            deadline_s=deadline)
+                    executed += 1
+                except Exception as e:  # noqa: BLE001 — per-query
+                    failures += 1
+                    print(f"[serve-stream {sid}] {qname} failed: "
+                          f"{type(e).__name__}: {e}")
+            code = 1 if failures else 0
+        except Exception as e:  # noqa: BLE001 — stream-fatal
+            print(f"[serve-stream {sid}] failed: "
+                  f"{type(e).__name__}: {e}")
+            obs.inc("harness.throughput.streams_failed")
+            code = 1
+        finally:
+            try:
+                health.update(cli.health())
+            except Exception:  # noqa: BLE001 — evidence only
+                pass
+            cli.close()
+        end = time.time()
+        with rec_lock:
+            records.append({
+                "stream": sid,
+                "start_epoch_s": round(start, 3),
+                "end_epoch_s": round(end, 3),
+                "wall_s": round(end - start, 3),
+                "returncode": code,
+                "executed": executed,
+                "failures": failures,
+                "skipped": skipped,
+                "client_retries": cli.retried,
+                "failovers": cli.failovers,
+                "endpoint": cli.endpoint.spec,
+            })
+
+    threads = [threading.Thread(target=worker, args=(sid,),
+                                name=f"serve-stream-{sid}",
+                                daemon=True)
+               for sid in stream_ids]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    rc = 1 if any(r["returncode"] for r in records) else 0
+    # per-replica attribution: each endpoint answers its OWN health
+    # doc (counters are per-process), so a fleet run shows how load
+    # and sheds distributed across replicas
+    replica_health = {}
+    from ndstpu_torch.serve import transport
+    endpoints = transport.parse_endpoints(serve_socket)
+    if len(endpoints) > 1:
+        for ep in endpoints:
+            one = ServeClient(ep.spec, retries=0,
+                              connect_timeout_s=2.0)
+            try:
+                replica_health[ep.spec] = one.health()
+            except Exception as e:  # noqa: BLE001 — evidence only
+                replica_health[ep.spec] = {"alive": False,
+                                           "error": str(e)}
+            finally:
+                one.close()
+    # overlap evidence: stream walls from the client side; the device-
+    # level peak is whatever the server's admission gate enforced,
+    # reported via its health doc
+    write_overlap_report(
+        overlap_report, records, health.get("admitted_peak"),
+        budget_s, mode="serve",
+        extra={"serve_socket": serve_socket,
+               "server_health": health or None,
+               "replica_health": replica_health or None,
+               "failovers_total": sum(r.get("failovers", 0)
+                                      for r in records),
+               "total_elapse_s": round(time.time() - t0, 3)})
+    return rc
+
+
 def main(argv: List[str]) -> int:
     # wrapper flags are parsed only from the part BEFORE the "--"
     # separator so the wrapped command's own flags are safe
@@ -262,10 +409,14 @@ def main(argv: List[str]) -> int:
     if err:
         print(err, file=sys.stderr)
         return 2
-    if mode == "serve":
-        print("--mode serve waits for the port's query server (the serve "
-              "slice, not yet ported); use --mode process or --mode inproc",
-              file=sys.stderr)
+    serve_socket, err = take("--serve_socket", str)
+    if err:
+        print(err, file=sys.stderr)
+        return 2
+    if mode == "serve" and not serve_socket:
+        print("--mode serve requires --serve_socket SPEC "
+              "(a running `python -m ndstpu_torch.harness.serve server` or "
+              "comma-separated fleet endpoints)", file=sys.stderr)
         return 2
     if budget_s is None and os.environ.get("NDSTPU_PHASE_BUDGET_S"):
         try:
@@ -279,10 +430,15 @@ def main(argv: List[str]) -> int:
     if not ids_arg or not cmd:
         print("usage: throughput <id,id,...> [--concurrent N] "
               "[--budget_s S] [--overlap_report PATH] "
-              "[--mode process|inproc] -- "
+              "[--mode process|inproc|serve] "
+              "[--serve_socket SPEC[,SPEC...]] -- "
               "<command with {} placeholders>", file=sys.stderr)
         return 2
     stream_ids = [s for s in ids_arg[0].split(",") if s]
+    if mode == "serve":
+        return run_streams_serve(
+            stream_ids, cmd, serve_socket, budget_s=budget_s,
+            overlap_report=overlap_report)
     if mode == "inproc":
         from ndstpu_torch.harness import scheduler
         # the phase's spans and counters start from nothing (its one

@@ -1,8 +1,9 @@
 """The port's power run against the JAX package's, on one small warehouse.
 
-The warehouse is built as ``tests/test_harness.py`` builds its own: the
+The warehouse is the one ``tests/test_harness.py`` builds for itself: the
 JAX package's generator (``ndstpu.datagen.driver``) at SF 0.002, then
-``ndstpu.io.transcode`` with its default Parquet layout.  Stream 0 (rngseed
+``ndstpu.io.transcode`` with its default Parquet layout, built once a test
+session (``test_torch_corpus_common.jax_warehouse``).  Stream 0 (rngseed
 07291122510) gets one more query, ``query100``, which names a column no
 table has, so that it fails on both sides.  Over the parts ``query3``,
 ``query42``, ``query14_part1``, ``query14_part2`` and ``query100``,
@@ -32,6 +33,7 @@ import pytest
 
 from ndstpu.harness import validate
 from ndstpu_torch.harness import power
+from test_torch_corpus_common import jax_warehouse
 
 PARTS = ["query3", "query42", "query14_part1", "query14_part2"]
 FAILING = "query100"
@@ -49,14 +51,9 @@ def runs(tmp_path_factory):
     """The warehouse, then both sides' runs: {side: {"dir", "budget"}}."""
     root = tmp_path_factory.mktemp("power")
     env = dict(os.environ, PYTHONPATH=os.getcwd())
-    subprocess.run([sys.executable, "-m", "ndstpu.datagen.driver", "local",
-                    "0.002", "2", str(root / "raw")], check=True, env=env,
-                   stdout=subprocess.DEVNULL)
-    subprocess.run([sys.executable, "-m", "ndstpu.io.transcode",
-                    "--input_prefix", str(root / "raw"),
-                    "--output_prefix", str(root / "wh"),
-                    "--report_file", str(root / "load.txt")],
-                   check=True, env=env, stdout=subprocess.DEVNULL)
+    # the SF 0.002 warehouse the template and engine files read, built
+    # once a test session by the same two commands
+    wh = str(jax_warehouse(tmp_path_factory))
     from ndstpu.queries import streamgen
     (path,) = streamgen.generate_query_streams(None, "07291122510",
                                                str(root), 1)
@@ -65,7 +62,6 @@ def runs(tmp_path_factory):
         f"\n-- start query 100 in stream 0 using template {FAILING}.tpl\n"
         f"select no_such_column from store_sales;\n"
         f"-- end query 100 in stream 0 using template {FAILING}.tpl\n"))
-    wh = str(root / "wh")
 
     def args(side, budget=False):
         d = root / side

@@ -12,7 +12,8 @@
   second failure permanent, as the JAX runner does with a stand-in stream
   process;
 * ``throughput.main`` refuses what the JAX ``main`` refuses, with 2, and
-  ``--mode serve`` with 2 and a message naming the serve slice;
+  ``--mode serve`` without ``--serve_socket`` with 2 and a message naming
+  the flag and the port's server;
 * the inproc runner takes only the port's power command and streams that
   share one warehouse;
 * ``obs.ledger`` and ``obs.sentinel`` give the JAX modules' rows, priors
@@ -256,7 +257,7 @@ def test_main_refuses_what_the_jax_main_refuses(case, capsys):
     assert throughput.main(list(BAD_ARGS[case])) == 2
     err = capsys.readouterr().err
     if case == "serve":
-        assert "query server" in err and "serve slice" in err
+        assert "--serve_socket" in err and "ndstpu_torch.harness.serve" in err
 
 
 def test_inproc_takes_only_the_ports_power_command(tmp_path):

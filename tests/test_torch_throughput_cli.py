@@ -1,8 +1,9 @@
 """The port's throughput run against the JAX package's, on one small warehouse.
 
-The warehouse is built as ``tests/test_torch_power.py`` builds its own: the
-JAX package's generator (``ndstpu.datagen.driver``) at SF 0.002, then
-``ndstpu.io.transcode``.  Streams 1 and 2 of rngseed 07291122510
+The warehouse is the one ``tests/test_torch_power.py`` reads: the JAX
+package's generator (``ndstpu.datagen.driver``) at SF 0.002, then
+``ndstpu.io.transcode``, built once a test session
+(``test_torch_corpus_common.jax_warehouse``).  Streams 1 and 2 of rngseed 07291122510
 (``streamgen --streams 3``) are cut to the parts ``query3``, ``query42``
 and ``query14_part1``, and stream 2 gets one more query, ``query100``,
 which names a column no table has, so that it fails on both sides.
@@ -45,6 +46,7 @@ from ndstpu_torch.engine.sql import normalize_sql_key
 from ndstpu_torch.harness import power, scheduler, throughput
 from ndstpu_torch.io import loader
 from ndstpu_torch.queries import streamgen
+from test_torch_corpus_common import jax_warehouse
 
 PARTS = ["query3", "query42", "query14_part1"]
 FAILING = "query100"
@@ -89,15 +91,9 @@ def runs(tmp_path_factory):
     {"root", "streams", "wh", "run" (the in-process InprocRun)}."""
     root = tmp_path_factory.mktemp("throughput")
     env = dict(os.environ, PYTHONPATH=os.getcwd())
-    subprocess.run([sys.executable, "-m", "ndstpu.datagen.driver", "local",
-                    "0.002", "2", str(root / "raw")], check=True, env=env,
-                   stdout=subprocess.DEVNULL)
-    subprocess.run([sys.executable, "-m", "ndstpu.io.transcode",
-                    "--input_prefix", str(root / "raw"),
-                    "--output_prefix", str(root / "wh"),
-                    "--report_file", str(root / "load.txt")],
-                   check=True, env=env, stdout=subprocess.DEVNULL)
-    streams, wh = _write_streams(root), str(root / "wh")
+    # the SF 0.002 warehouse the template and engine files read, built
+    # once a test session by the same two commands
+    streams, wh = _write_streams(root), str(jax_warehouse(tmp_path_factory))
     for side in ("jax", "port", "main", "process", "generated", "ledger"):
         (root / side).mkdir()
     jax_cmd = [sys.executable, "-m", "ndstpu.harness.throughput",
