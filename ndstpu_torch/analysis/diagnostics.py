@@ -14,7 +14,7 @@ runs but something is fragile, ``info`` advisory only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 SEVERITIES = ("error", "warning", "info")
 
@@ -40,6 +40,28 @@ CODES: Dict[str, Tuple[str, str]] = {
     "NDS212": ("error", "IN-list incompatible with operand column"),
     "NDS213": ("info", "data-dependent device capacity guard"),
     "NDS214": ("info", "grouping sets need per-set passes (not combinable)"),
+    # -- NDS3xx SPMD spine ------------------------------------------------
+    "NDS301": ("info", "no distributable base-table scan"),
+    "NDS302": ("warning", "aggregate not decomposable on the SPMD spine"),
+    "NDS303": ("warning", "join kind unsupported on the SPMD spine"),
+    "NDS304": ("warning", "non-equi join on the SPMD spine"),
+    "NDS305": ("info", "predicted exchange placement (broadcast/shuffle)"),
+    "NDS306": ("info", "row spine does no distributed work"),
+    "NDS307": ("warning", "join key kind not shardable on the spine"),
+    "NDS308": ("info", "existence-join build side reduced to distinct "
+                       "key tuples distributed (no host build of the "
+                       "sharded table)"),
+    "NDS309": ("info", "aggregate distributes over a union-all of "
+                       "sharded branches (per-branch spines, host "
+                       "partial combine)"),
+    "NDS310": ("info", "row-spine tail (sort/limit/window) finalizes "
+                       "on-device; only the small result gathers"),
+    "NDS311": ("warning", "configured chunked streaming fell back to the "
+                          "single-chip whole-fact path (the fact must fit "
+                          "HBM resident; spmd_chunk_rows is ignored there)"),
+    "NDS312": ("info", "string join key shards on frozen global-dictionary "
+                       "codes (no build-dictionary translation; "
+                       "NDSTPU_GLOBAL_DICTS=0 restores the translate path)"),
     # -- NDS4xx canonicalization / parameter lifting ----------------------
     "NDS401": ("info", "shape-affecting literal: value feeds static shape "
                        "or capacity planning (LIMIT, interval width, "
@@ -79,6 +101,8 @@ CODES: Dict[str, Tuple[str, str]] = {
                        "threshold"),
 }
 
+_SEV_ORDER = {"error": 0, "warning": 1, "info": 2}
+
 
 @dataclasses.dataclass(frozen=True)
 class Diagnostic:
@@ -112,3 +136,8 @@ class Diagnostic:
         return {"query": self.query, "code": self.code,
                 "severity": self.severity, "path": self.path,
                 "message": self.message}
+
+
+def sort_diagnostics(diags: Iterable[Diagnostic]) -> List[Diagnostic]:
+    return sorted(diags, key=lambda d: (d.query, _SEV_ORDER[d.severity],
+                                        d.code, d.path, d.message))

@@ -87,6 +87,9 @@ COLUMNS = {
 }
 
 TABLES = tuple(get_schemas())
+# the fact tables, which ``generate(host_facts=True)`` keeps in host memory
+FACTS = ("store_sales", "store_returns", "catalog_sales", "catalog_returns",
+         "web_sales", "web_returns", "inventory")
 
 # seeds of the streams beside the main generator, mixed with ``seed``
 _STREAMS = {
@@ -120,11 +123,16 @@ def _wanted(tables: Optional[Iterable[str]],
 
 def generate(scale: float, seed: int, device,
              tables: Optional[Iterable[str]] = None,
-             columns: Optional[Mapping[str, Sequence[str]]] = None
-             ) -> Catalog:
+             columns: Optional[Mapping[str, Sequence[str]]] = None,
+             host_facts: bool = False) -> Catalog:
     """A catalog of the warehouse at ``scale``, generated on ``device``
     from ``seed``: every column of every table by default, every column
-    of ``tables``, or the columns ``columns`` maps each table to."""
+    of ``tables``, or the columns ``columns`` maps each table to.  With
+    ``host_facts`` the seven fact tables (:data:`FACTS`) are generated on
+    ``device`` chunk by chunk as always, and each chunk is copied into
+    host memory, where the tables stay (the out-of-core warehouse, which
+    the session streams with ``spmd_chunk_rows``); their values are the
+    same.  The dimensions stay on ``device``."""
     device = torch.device(device)
     want = _wanted(tables, columns)
     n = sizes(scale)
@@ -177,12 +185,13 @@ def generate(scale: float, seed: int, device,
             keep |= facts.parent_columns("store_returns",
                                          want["store_returns"])
         made["store_sales"] = facts.store_sales(
-            n["store_sales"], n, gen, extra("store_sales"), device, keep)
+            n["store_sales"], n, gen, extra("store_sales"), device, keep,
+            host_facts)
     if last >= 3:
         made["store_returns"] = facts.returns(
             "store_returns", n["store_returns"], made["store_sales"],
             n["store_sales"], n["reason"], gen, extra("store_returns"),
-            device, want["store_returns"])
+            device, want["store_returns"], host_facts)
 
     for sales, rets in (("catalog_sales", "catalog_returns"),
                         ("web_sales", "web_returns")):
@@ -193,15 +202,15 @@ def generate(scale: float, seed: int, device,
             keep |= facts.parent_columns(rets, want[rets])
         made[sales] = facts.channel_sales(
             sales, n[sales], n, extra(sales), extra(sales + " extra"),
-            device, keep)
+            device, keep, host_facts)
         if rets in want:
             made[rets] = facts.returns(
                 rets, n[rets], made[sales], n[sales], n["reason"], None,
-                extra(rets), device, want[rets])
+                extra(rets), device, want[rets], host_facts)
     if "inventory" in want:
         made["inventory"] = facts.inventory(
             n["item"], n["warehouse"], extra("inventory"), device,
-            want["inventory"])
+            want["inventory"], host_facts)
 
     cat = Catalog()
     for table in TABLES:
@@ -223,5 +232,5 @@ def move(cat: Catalog, device) -> Catalog:
     return out
 
 
-__all__ = ["COLUMNS", "TABLES", "DISTS", "generate", "generate_refresh",
+__all__ = ["COLUMNS", "FACTS", "TABLES", "DISTS", "generate", "generate_refresh",
            "move", "refresh_sizes", "sizes", "bkey", "return_parent_rows"]

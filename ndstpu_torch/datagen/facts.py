@@ -27,11 +27,14 @@ Columns = Dict[str, Column]
 
 class Sink:
     """The kept columns of one table of ``n`` rows, filled chunk by
-    chunk in their schema types."""
+    chunk in their schema types: on ``device``, or with ``host`` in host
+    memory, each chunk copied there as it is made (the out-of-core
+    warehouse: facts too large for the card stay in host memory)."""
 
-    def __init__(self, table: str, n: int, keep: Iterable[str], device):
+    def __init__(self, table: str, n: int, keep: Iterable[str], device,
+                 host: bool = False):
         self.table, self.n, self.keep = table, n, set(keep)
-        self.device = device
+        self.device = torch.device("cpu") if host else device
         self.data: Dict[str, torch.Tensor] = {}
         self.valid: Dict[str, torch.Tensor] = {}
 
@@ -114,11 +117,11 @@ def _money(out: Sink, p: str, b: int, e: int, q, wholesale, lst, sales,
 
 
 def store_sales(n: int, sz: Dict[str, int], gen, extra, device,
-                keep) -> Columns:
+                keep, host: bool = False) -> Columns:
     """gen_store_sales.  The main generator ``gen`` makes the draws it
     made before every column was generated, in their order; demographics,
     address, promotion (50% NULL) and the tax rate come from ``extra``."""
-    out = Sink("store_sales", n, keep, device)
+    out = Sink("store_sales", n, keep, device, host)
     p = "ss_"
     for b, e, k in _chunks(n):
         date, date_ok = sale_dates(k, gen, device)
@@ -153,7 +156,7 @@ def store_sales(n: int, sz: Dict[str, int], gen, extra, device,
 
 
 def channel_sales(table: str, n: int, sz: Dict[str, int], gen, extra,
-                  device, keep) -> Columns:
+                  device, keep, host: bool = False) -> Columns:
     """gen_catalog_sales or gen_web_sales.  The channel's stream ``gen``
     makes the draws it made before every column was generated, in their
     order: the sold date, the Zipf item, then the ship-to key (catalog: an
@@ -165,7 +168,7 @@ def channel_sales(table: str, n: int, sz: Dict[str, int], gen, extra,
     keys, the channel key (call center or web site, 2% NULL), the page,
     ship mode, warehouse, promotion (50% NULL), coupon, tax, ship cost and
     ship date."""
-    out = Sink(table, n, keep, device)
+    out = Sink(table, n, keep, device, host)
     web = table == "web_sales"
     p = table[0] + "s_"
     for b, e, k in _chunks(n):
@@ -300,7 +303,8 @@ _RETURN_NAMES = {
 
 
 def returns(table: str, n: int, sales: Columns, n_sales: int,
-            n_reason: int, gen, extra, device, keep) -> Columns:
+            n_reason: int, gen, extra, device, keep,
+            host: bool = False) -> Columns:
     """gen_return over the parent sales ``sales`` (full-size columns):
     each return carries its sale's keys, and ``gen_return``'s date (1..90
     days after the sale), time, reason, quantity up to the sale's and
@@ -311,11 +315,14 @@ def returns(table: str, n: int, sales: Columns, n_sales: int,
     p = SALE_OF_RETURNS[table][0] + "s_"
     r = table[0] + "r_"
     date_name, time_name, amt_name, credit_name = _RETURN_NAMES[table]
-    out = Sink(table, n, keep, device)
+    out = Sink(table, n, keep, device, host)
 
     def of(col):
+        # the parent sales rows on the device, wherever the sales are
         c = sales[col]
-        return c.data[parent], None if c.valid is None else c.valid[parent]
+        idx = parent.to(c.data.device)
+        return c.data[idx].to(device), \
+            None if c.valid is None else c.valid[idx].to(device)
 
     for name, sale_col in RETURN_PARENT[table].items():
         if name in out.keep:
@@ -355,13 +362,14 @@ def returns(table: str, n: int, sales: Columns, n_sales: int,
     return out.columns()
 
 
-def inventory(n_item: int, n_warehouse: int, gen, device, keep) -> Columns:
+def inventory(n_item: int, n_warehouse: int, gen, device, keep,
+              host: bool = False) -> Columns:
     """gen_inventory: a weekly snapshot over the 261 weeks of the sales
     window of every other item in every warehouse; quantity on hand
     uniform 0..1000, 5% NULL."""
     items = max(n_item // 2, 1)
     n = INVENTORY_WEEKS * items * n_warehouse
-    out = Sink("inventory", n, keep, device)
+    out = Sink("inventory", n, keep, device, host)
     for b, e, k in _chunks(n):
         i = torch.arange(b, e, dtype=torch.int64, device=device)
         week = i // (items * n_warehouse)

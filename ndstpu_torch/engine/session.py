@@ -34,14 +34,32 @@ query does, sharing the live plan-cache entry; a pin that a later DDL or
 DML left behind plans against the pinned catalog and runs eagerly on the
 session's device over the pinned tables, with no discovery and no graph
 (the JAX session runs it on its host engine, which the port does not
-have).  The SPMD backends are a later slice.
+have).
+
+Out-of-core execution (the JAX session's ``backend="tpu"`` with
+``spmd_chunk_rows``): with ``spmd_chunk_rows`` set (rows, or ``"auto"``)
+every query first goes to the distributed plan executor over a one-rank
+mesh (:mod:`ndstpu_torch.parallel.dplan`), which streams a fact larger
+than a chunk — or, on a card, one the catalog holds in host memory —
+through the device chunk by chunk.  Its executors are cached by the
+views epoch, the canonical key and the binding's value hash, and run
+again while the catalog versions hold (``engine.cache.spmd.{hit,miss}``).
+A plan shape or expression outside the distributed subset
+(``DistUnsupported``, ``Unsupported``) falls through to the compiling
+executor, counted as ``engine.spmd.unsupported_fallbacks`` and
+``engine.spmd.fallback.<code>`` and annotated on the query span; any
+other failure is a defect, counted, warned and reported as a task
+failure (``NDSTPU_SPMD_STRICT`` raises it), never silent.  The multi-rank
+``tpu-spmd`` backend is a later slice.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import sys
 import threading
+import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -59,6 +77,7 @@ from ndstpu_torch.engine.torchexec import (
     GROUPBY_DEFAULT,
     CompilingExecutor,
     TorchExecutor,
+    Unsupported,
     resolve_device,
 )
 from ndstpu_torch.io.catalog import Catalog
@@ -96,7 +115,40 @@ class Session:
     per-query state; one device runs one graph at a time)."""
 
     def __init__(self, catalog, device=None,
-                 groupby: str = GROUPBY_DEFAULT):
+                 groupby: str = GROUPBY_DEFAULT,
+                 spmd_threshold: Optional[int] = None,
+                 spmd_chunk_rows=None,
+                 spmd_prefetch_depth: Optional[int] = None):
+        if spmd_chunk_rows is not None and not (
+                spmd_chunk_rows == "auto"
+                or (isinstance(spmd_chunk_rows, int)
+                    and not isinstance(spmd_chunk_rows, bool)
+                    and spmd_chunk_rows > 0)):
+            raise ValueError(
+                f"spmd_chunk_rows must be a positive int, 'auto', or "
+                f"None, got {spmd_chunk_rows!r}")
+        if spmd_prefetch_depth is not None and (
+                not isinstance(spmd_prefetch_depth, int)
+                or isinstance(spmd_prefetch_depth, bool)
+                or spmd_prefetch_depth < 0):
+            raise ValueError(
+                f"spmd_prefetch_depth must be a non-negative int or "
+                f"None, got {spmd_prefetch_depth!r}")
+        # out-of-core streaming: minimum table rows to take the
+        # distributed path (None = dplan's default), the chunk rows (an
+        # int, "auto" = memplan sizes chunks from the device's free
+        # memory, None = off) and the staging ring's depth (0 =
+        # synchronous, None = the planner's default)
+        self.spmd_threshold = spmd_threshold
+        self.spmd_chunk_rows = spmd_chunk_rows
+        self.spmd_prefetch_depth = spmd_prefetch_depth
+        # views epoch | canonical key | value hash -> (versions, executor)
+        self._spmd_cache: Dict[str, tuple] = {}
+        self._spmd_used = False
+        self._spmd_errors: List[str] = []
+        # the distributed executor of the last query (None: it fell
+        # through or streaming is off)
+        self.last_spmd = None
         self.catalog = catalog
         self.device = resolve_device(device)
         # the executor accessor (jaxexec's Session._jax_executor): one per
@@ -131,7 +183,10 @@ class Session:
         watchdog continues on one while an abandoned query still runs on
         this one."""
         new = Session(self.catalog, device=self.device,
-                      groupby=self.executor.groupby_mode)
+                      groupby=self.executor.groupby_mode,
+                      spmd_threshold=self.spmd_threshold,
+                      spmd_chunk_rows=self.spmd_chunk_rows,
+                      spmd_prefetch_depth=self.spmd_prefetch_depth)
         new.views, new._views_epoch = dict(self.views), self._views_epoch
         new.executor.share_tables(self.executor)
         return new
@@ -192,7 +247,9 @@ class Session:
                 plan, _cols, disp = self._plan_fresh(stmt)
                 with self._exec_lock:
                     faults.check("execute", key=None)
-                    out = self.executor.execute_to_host(plan)
+                    out = self._run_spmd(plan, None, None)
+                    if out is None:
+                        out = self.executor.execute_to_host(plan)
             else:
                 plan, disp, canon = self._plan_cached(stmt, norm, pin)
                 with self._exec_lock:
@@ -207,8 +264,151 @@ class Session:
                     if self.spine_cache is not None:
                         self._ran[norm] = run
                     faults.check("execute", key=norm)
-                    out = self.executor.execute_cached(*run, sql=norm)
+                    out = self._run_spmd(plan, norm, canon)
+                    if out is None:
+                        out = self.executor.execute_cached(*run, sql=norm)
             return columnar.Table(dict(zip(disp, out.columns.values())))
+
+    # -- out-of-core execution (the JAX session's _execute :514-598) ---------
+
+    def _run_spmd(self, plan: lp.Plan, key: Optional[str], canon
+                  ) -> Optional[columnar.Table]:
+        """Run a query through the distributed plan executor when
+        out-of-core streaming is on; None when it is off or the plan
+        falls through to the compiling executor."""
+        if self.spmd_chunk_rows is None:
+            return None
+        from ndstpu_torch.parallel import dplan
+        versions = tuple(sorted(self.catalog.versions.items()))
+        cache = self._spmd_cache
+        # shape-keyed cache: a canonical plan with an empty shape
+        # residual is keyed on fingerprint + bound-value hash (the values
+        # go back into literals before the spine runs, so distinct
+        # bindings are distinct executors)
+        spmd_plan, spmd_params = plan, None
+        if canon is not None and not canon.residual:
+            vh = hashlib.sha256(
+                repr(canon.binding.values).encode()).hexdigest()[:16]
+            ck = f"{self._views_epoch}|{canon.cache_key}|v{vh}"
+            spmd_plan, spmd_params = canon.exec_plan, canon.binding
+        else:
+            ck = f"{self._views_epoch}|{key}" if key is not None else None
+        ent = cache.get(ck) if ck else None
+        if ent is not None and ent[0] != versions:
+            # data changed: drop the stale executor and rebuild below
+            del cache[ck]
+            ent = None
+        obs.inc("engine.cache.spmd.hit" if ent is not None
+                else "engine.cache.spmd.miss")
+        if ent is not None:
+            try:
+                out = self.executor._with_memory(ent[1].execute_again)
+                self._spmd_used = True
+                return out
+            except Exception as e:  # noqa: BLE001
+                # degrade a cached re-execution defect as a first-run
+                # one: drop the executor, fall back
+                del cache[ck]
+                self._record_spmd_error(e)
+                return None
+        try:
+            kw = {"dev_cache": self.executor._device_cache,
+                  "device": self.device,
+                  "chunk_rows": self.spmd_chunk_rows,
+                  "cost_advisor": self._cost_advisor()}
+            if self.spmd_threshold is not None:
+                kw["shard_threshold_rows"] = self.spmd_threshold
+            if self.spmd_prefetch_depth is not None:
+                kw["prefetch_depth"] = self.spmd_prefetch_depth
+            made = []
+
+            def run():
+                # a fresh executor for a rerun after out of memory
+                made.append(dplan.DistributedPlanExecutor(
+                    self.catalog, self._mesh(), **kw))
+                return made[-1].execute_plan(spmd_plan, params=spmd_params)
+
+            out = self.executor._with_memory(run)
+            exe = made[-1]
+            if ck:
+                cache[ck] = (versions, exe)
+            self._spmd_used = True
+            self.last_spmd = exe
+            return out
+        except (dplan.DistUnsupported, Unsupported) as u:
+            # a plan shape or expression outside the distributed subset:
+            # the compiling executor runs it
+            obs.inc("engine.spmd.unsupported_fallbacks")
+            code = getattr(u, "code", None)
+            obs.annotate(spmd_fallback=f"{code or 'uncoded'}: {u}")
+            if code:
+                obs.inc(f"engine.spmd.fallback.{code}")
+            self.last_spmd = None
+            self._note_chunk_fallthrough(u)
+        except Exception as e:  # noqa: BLE001
+            # a distributed-executor defect degrades to the compiling
+            # executor, never silently (see _record_spmd_error)
+            self.last_spmd = None
+            self._record_spmd_error(e)
+        return None
+
+    def _note_chunk_fallthrough(self, u: Exception) -> None:
+        """NDS311: chunked streaming was configured on a multi-rank mesh
+        but this plan fell back to the single-device whole-fact path.  On
+        the one-rank mesh the port runs, a fall-through is the JAX
+        session's ``backend="tpu"`` case, counted above and not an
+        NDS311."""
+        if self._mesh().n_dev <= 1:
+            return
+        code = getattr(u, "code", None)
+        msg = (f"NDS311: chunked streaming configured "
+               f"(spmd_chunk_rows={self.spmd_chunk_rows!r}) but this plan "
+               f"fell back to the single-device whole-fact path "
+               f"({code or 'uncoded'}: {u})")
+        obs.inc("engine.spmd.fallback.NDS311")
+        obs.annotate(chunk_fallthrough=f"{code or 'uncoded'}")
+        if os.environ.get("NDSTPU_SPMD_STRICT"):
+            raise RuntimeError(msg) from u
+        warnings.warn(msg, stacklevel=3)
+
+    def _record_spmd_error(self, e: Exception) -> None:
+        """A failure of the distributed executor other than
+        DistUnsupported/Unsupported is a defect, not a capability gap:
+        NDSTPU_SPMD_STRICT re-raises it, and otherwise it is counted
+        (``engine.spmd.error_fallbacks``), the first one printed on
+        stderr, and each one warned, which the power run reports as
+        ``CompletedWithTaskFailures``."""
+        obs.inc("engine.spmd.error_fallbacks")
+        if os.environ.get("NDSTPU_SPMD_STRICT"):
+            raise e
+        if not self._spmd_errors:
+            print(f"WARNING: distributed executor failed "
+                  f"({type(e).__name__}: {e}); falling back to the "
+                  f"compiling executor (further fallbacks collected in "
+                  f"Session._spmd_errors)", file=sys.stderr)
+        warnings.warn(f"distributed executor fell back to the compiling "
+                      f"executor: {type(e).__name__}: {e}", stacklevel=2)
+        self._spmd_errors.append(repr(e))
+
+    def _mesh(self):
+        m = getattr(self, "_mesh_cache", None)
+        if m is None:
+            from ndstpu_torch.parallel import mesh as pmesh
+            m = self._mesh_cache = pmesh.make_mesh(1)
+        return m
+
+    def _cost_advisor(self):
+        """Session-cached exchange-placement advisor (analysis/cost.py);
+        re-checks the NDSTPU_COST kill switch a query."""
+        from ndstpu_torch.analysis import cost
+        if not cost.enabled():
+            return None
+        adv = getattr(self, "_cost_advisor_cache", None)
+        if adv is None:
+            from ndstpu_torch.analysis import lowering as lowreg
+            adv = cost.default_advisor(lowreg.SPMD_BROADCAST_LIMIT_ROWS)
+            self._cost_advisor_cache = adv
+        return adv
 
     def _run_pinned(self, plan: lp.Plan, pin: SnapshotPin) -> columnar.Table:
         """A query whose pin a later DDL or DML left behind: its plan (made

@@ -385,6 +385,204 @@ def to_host(dt: DTable) -> Table:
     return Table(cols)
 
 
+# ---------------------------------------------------------------------------
+# the host-to-device staging ring of out-of-core execution
+# ---------------------------------------------------------------------------
+
+
+class ChunkPrefetcher:
+    """Host-to-device staging ring for the out-of-core chunked executor
+    (jaxexec.ChunkPrefetcher; ``ndstpu_torch.parallel.dplan``).
+
+    ``get(i)`` returns chunk ``i``'s device tensors: per column its data
+    and validity, then the alive mask, each ``rows`` long (a short last
+    chunk is padded with dead rows).  While the caller computes on them,
+    one staging thread runs ``read_fn`` (the scan pool's read of a chunk:
+    per column ``(data, valid or None)`` of ``count`` rows, and
+    ``count``) and the copy to the device for chunks ``i+1 .. i+depth``.
+    ``depth=0`` is synchronous, which is also the degraded mode when a
+    background stage fails (the ``io.prefetch`` fault site fires inside
+    it): the stream slows down, it never wedges or drops a chunk.
+
+    On a card, a chunk read from host memory is copied into one of
+    ``depth + 1`` sets of pinned staging buffers (a ring), and from there
+    to the device with ``non_blocking`` copies on a side stream owned by
+    the staging thread.  An event a slot, recorded after its copies, must
+    complete before the slot is filled again, and an event a chunk makes
+    the compute stream wait for its copies; the chunk's device tensors
+    are marked as used by the compute stream (``record_stream``), so the
+    caching allocator does not hand their memory to the next chunk while
+    a launch still reads it.  Only the ring is pinned, never a whole
+    table.  A chunk already on the device (a resident fact) is padded
+    there; on the CPU every chunk is.
+
+    Counters (the JAX package's names): ``io.prefetch.hit`` (staged ahead
+    and ready at ``get``), ``io.prefetch.miss`` (staged synchronously or
+    still in flight), ``engine.h2d.bytes`` (host bytes copied to the
+    device), ``engine.h2d.overlap_s`` (wall spent staging in the
+    background), ``engine.h2d.wait_s`` (``get`` blocked on a chunk still
+    in flight).
+    """
+
+    def __init__(self, read_fn, n_chunks: int, rows: int, device,
+                 depth: int = 2):
+        self._read = read_fn
+        self._n = int(n_chunks)
+        self._rows = int(rows)
+        self.device = torch.device(device)
+        self._depth = max(int(depth), 0)
+        self._futs: Dict[int, object] = {}
+        self._pool = None
+        self._degraded = False
+        self._slots: List[Optional[list]] = [None] * (self._depth + 1)
+        self._slot_events: List[Optional[object]] = \
+            [None] * (self._depth + 1)
+        self._side = None
+        # eager start: stage chunk 0's window now
+        self._schedule_ahead(-1)
+
+    def reset(self, next_i: int = 0) -> None:
+        """Rewind the ring for another pass over the same chunks (a
+        cached chunked query run again), staging ahead from
+        ``next_i``."""
+        for fut in self._futs.values():
+            fut.cancel()
+        self._futs.clear()
+        if not self._degraded:
+            self._schedule_ahead(next_i - 1)
+
+    def _ensure_pool(self):
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            # one thread: one writer of the ring, in chunk order
+            self._pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ndstpu-h2d")
+        return self._pool
+
+    def _stage_bg(self, i: int):
+        faults.check("io.prefetch", key=str(i))
+        t0 = time.monotonic()
+        try:
+            return self._stage(i)
+        finally:
+            obs.inc("engine.h2d.overlap_s", time.monotonic() - t0)
+
+    def _stage(self, i: int):
+        """Chunk ``i`` on the device: ``(tensors, ready event or
+        None)``."""
+        cols, count = self._read(i)
+        m = self._rows
+        host = self.device.type == "cuda" and any(
+            not isinstance(d, torch.Tensor) or d.device.type == "cpu"
+            for d, _v in cols)
+        if not host:
+            out = []
+            for d, v in cols:
+                d = torch.as_tensor(d).to(self.device)
+                buf = torch.zeros(m, dtype=d.dtype, device=self.device)
+                buf[:count] = d
+                vb = torch.zeros(m, dtype=torch.bool, device=self.device)
+                if v is None:
+                    vb[:count] = True
+                else:
+                    vb[:count] = torch.as_tensor(v).to(self.device)
+                out += [buf, vb]
+            alive = torch.zeros(m, dtype=torch.bool, device=self.device)
+            alive[:count] = True
+            return out + [alive], None
+        k = i % (self._depth + 1)
+        slot = self._slots[k]
+        if slot is None:
+            slot = []
+            for d, _v in cols:
+                slot += [torch.empty(m, dtype=torch.as_tensor(d[:0]).dtype,
+                                     pin_memory=True),
+                         torch.empty(m, dtype=torch.bool, pin_memory=True)]
+            slot.append(torch.empty(m, dtype=torch.bool, pin_memory=True))
+            self._slots[k] = slot
+            self._slot_events[k] = torch.cuda.Event()
+        else:
+            # the copies that read this slot last time have finished
+            self._slot_events[k].synchronize()
+        for j, (d, v) in enumerate(cols):
+            pd, pv = slot[2 * j], slot[2 * j + 1]
+            pd[:count].copy_(torch.as_tensor(d))
+            pd[count:].zero_()
+            if v is None:
+                pv[:count].fill_(True)
+            else:
+                pv[:count].copy_(torch.as_tensor(v))
+            pv[count:].fill_(False)
+        slot[-1][:count].fill_(True)
+        slot[-1][count:].fill_(False)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._side):
+            out = [p.to(self.device, non_blocking=True) for p in slot]
+            self._slot_events[k].record(self._side)
+            ready = torch.cuda.Event()
+            ready.record(self._side)
+        obs.inc("engine.h2d.bytes", sum(p.numel() * p.element_size()
+                                        for p in slot))
+        return out, ready
+
+    def _schedule_ahead(self, i: int) -> None:
+        if self._degraded or self._depth == 0:
+            return
+        for j in range(i + 1, min(i + 1 + self._depth, self._n)):
+            if j not in self._futs:
+                self._futs[j] = self._ensure_pool().submit(
+                    self._stage_bg, j)
+
+    def get(self, i: int) -> list:
+        staged = None
+        fut = self._futs.pop(i, None)
+        if fut is not None:
+            done = fut.done()
+            obs.inc("io.prefetch.hit" if done else "io.prefetch.miss")
+            t0 = time.monotonic()
+            try:
+                staged = fut.result()
+                if not done:   # ring behind compute: a visible stall
+                    obs.inc("engine.h2d.wait_s", time.monotonic() - t0)
+                self._schedule_ahead(i)
+            except Exception as e:  # noqa: BLE001 — degrade, don't wedge
+                self._degrade(e)
+        else:
+            obs.inc("io.prefetch.miss")
+            self._schedule_ahead(i)
+        if staged is None:
+            staged = self._stage(i)
+        out, ready = staged
+        if ready is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ready)
+            for t in out:
+                t.record_stream(cur)
+        return out
+
+    def _degrade(self, exc: Exception) -> None:
+        if not self._degraded:
+            self._degraded = True
+            obs.inc("io.prefetch.degraded")
+            obs.annotate(
+                io_prefetch_degraded=f"{type(exc).__name__}: {exc}")
+        for fut in self._futs.values():
+            fut.cancel()
+        self._futs.clear()
+
+    def close(self) -> None:
+        for fut in self._futs.values():
+            fut.cancel()
+        self._futs.clear()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+        if self._side is not None:
+            self._side.synchronize()
+        self._slots = [None] * (self._depth + 1)
+
+
 class _Drift(RuntimeError):
     """A replay asked for something other than what its discovery
     recorded: the record does not belong to this plan (a preloaded record
@@ -1922,19 +2120,43 @@ class TorchExecutor:
 
     # -- leaves --------------------------------------------------------------
 
-    def _table_device(self, name: str) -> DTable:
+    def _table_device(self, name: str,
+                      columns: Optional[Sequence[str]] = None) -> DTable:
+        """The device copy of a catalog table, uploaded at its first use.
+        A table held in host memory for this device (the out-of-core
+        facts, :meth:`Catalog.on_host`) uploads only ``columns``, added
+        to its columns already up: its whole width need not fit."""
         version = self.catalog.versions.get(name)
         cached = self._device_cache.get(name)
-        if cached is not None and cached[0] == version:
+        if cached is not None and cached[0] != version:
+            cached = None
+        on_host = getattr(self.catalog, "on_host", None)
+        if columns is None or on_host is None or \
+                not on_host(name, self.device):
+            if cached is not None and (columns is None or all(
+                    c in cached[1].columns for c in columns)):
+                return cached[1]
+            dt = to_device(self.catalog.get(name), self.device)
+            self._device_cache[name] = (version, dt)
+            return dt
+        t = self.catalog.get(name)
+        have = cached[1].columns if cached is not None else {}
+        need = [c for c in (list(columns) or t.column_names[:1])
+                if c not in have]
+        if not need:
             return cached[1]
-        dt = to_device(self.catalog.get(name), self.device)
+        part = to_device(Table({c: t.column(c) for c in need}), self.device)
+        dt = DTable({**have, **part.columns}, part.alive)
         self._device_cache[name] = (version, dt)
         return dt
 
     def _exec_scan(self, p: lp.Scan) -> DTable:
-        dt = self._table_device(p.table)
+        cols = None
         if p.columns is not None:
-            cols = list(p.columns) or dt.column_names[:1]
+            cols = list(p.columns) or \
+                self.catalog.get(p.table).column_names[:1]
+        dt = self._table_device(p.table, cols)
+        if cols is not None:
             dt = dt.select(cols)
         if p.predicate is not None:
             pred = self._resolve_subqueries(p.predicate)
@@ -3888,8 +4110,8 @@ class CompilingExecutor(TorchExecutor):
         """Replay one segment alone (on CUDA its graph) under
         ``binding``: its result, copied out of the graph's buffers, or
         None when one of its guards failed."""
-        for name in scp.table_cols or ():
-            self._table_device(name)
+        for name, cols in (scp.table_cols or {}).items():
+            self._table_device(name, cols)
         values = binding.values if binding is not None else None
         if not self.capture:
             out, alive, ok = self._replay_run(
@@ -4055,8 +4277,8 @@ class CompilingExecutor(TorchExecutor):
         # bounds back to the host, which a capture cannot, and a preloaded
         # record's first run captures before any discovery uploaded them
         for g in cp.programs:
-            for name in g.table_cols or ():
-                self._table_device(name)
+            for name, cols in (g.table_cols or {}).items():
+                self._table_device(name, cols)
         values = binding.values if binding is not None else None
         if not self.capture:
             segs = {fp: self._replay_run(s, self._host_args(s, binding),

@@ -49,6 +49,14 @@ sentinel (:mod:`ndstpu_torch.obs.sentinel`) judges every query against the
 ledger as it stood before the run, the run's rows are appended under the
 engine ``torch-<device type>``, and the sidecar carries both.
 
+Out-of-core execution: the engine properties ``spmd.chunk_rows`` (rows,
+or ``auto``), ``spmd.prefetch_depth`` and ``spmd.threshold_rows`` (from
+``--property_file`` or ``--property KEY=VALUE``, as the JAX package's
+:452-477) set the session's ``spmd_*`` fields, which carry across the
+watchdog's session rebuild.  With ``spmd.chunk_rows`` set, ``--generate``
+keeps the seven fact tables in host memory (``datagen.generate(...,
+host_facts=True)``), and queries stream them through the card.
+
 Left for later slices of the port, and not accepted here:
 ``--static_check``, ``--xla_cache_dir`` (the XLA compile cache has no
 counterpart) and ``--floats``.  ``jax.*`` engine properties are recorded in
@@ -161,6 +169,32 @@ def load_properties(filename: str) -> Dict[str, str]:
                 k, v = line.split("=", 1)
                 props[k.strip()] = v.strip()
     return props
+
+
+def engine_properties(args) -> Dict[str, str]:
+    """The run's engine properties: ``--property_file``, then each
+    ``--property KEY=VALUE`` (a later one wins)."""
+    props: Dict[str, str] = {}
+    if getattr(args, "property_file", None):
+        props.update(load_properties(args.property_file))
+    for kv in getattr(args, "property", None) or ():
+        k, _, v = kv.partition("=")
+        props[k.strip()] = v.strip()
+    return props
+
+
+def spmd_settings(engine_conf: Dict[str, str]) -> Dict[str, object]:
+    """The session's out-of-core fields from the ``spmd.*`` engine
+    properties (the JAX package's power.py:471-477)."""
+    out: Dict[str, object] = {}
+    if engine_conf.get("spmd.threshold_rows"):
+        out["spmd_threshold"] = int(engine_conf["spmd.threshold_rows"])
+    if engine_conf.get("spmd.chunk_rows"):
+        raw = engine_conf["spmd.chunk_rows"]
+        out["spmd_chunk_rows"] = raw if raw == "auto" else int(raw)
+    if engine_conf.get("spmd.prefetch_depth"):
+        out["spmd_prefetch_depth"] = int(engine_conf["spmd.prefetch_depth"])
+    return out
 
 
 def run_stream(query_dict, *, queue, runner,
@@ -338,15 +372,17 @@ def power_fingerprint(args) -> str:
     return hashlib.sha256("|".join(parts).encode()).hexdigest()
 
 
-def _load(args, device):
+def _load(args, device, host_facts: bool = False):
     """The load phase's catalog: generated on ``device`` with
-    ``--generate``, read from the warehouse's files otherwise."""
+    ``--generate`` (the fact tables in host memory with ``host_facts``),
+    read from the warehouse's files otherwise."""
     if args.generate is None:
         return loader.load_catalog(args.input_prefix)
     import torch
 
     from ndstpu_torch import datagen
-    catalog = datagen.generate(args.generate, args.generate_seed, device)
+    catalog = datagen.generate(args.generate, args.generate_seed, device,
+                               host_facts=host_facts)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return catalog
@@ -424,9 +460,8 @@ def run_query_stream(args) -> None:
     if args.output_prefix:
         loader._pyarrow()   # writing outputs needs pyarrow: refuse now
 
-    engine_conf: Dict[str, str] = {}
-    if args.property_file:
-        engine_conf.update(load_properties(args.property_file))
+    engine_conf = engine_properties(args)
+    spmd = spmd_settings(engine_conf)
     engine_conf.setdefault("device", args.device)
     engine_conf.setdefault("input_format", args.input_format)
 
@@ -435,7 +470,9 @@ def run_query_stream(args) -> None:
     # catalog load == table registration (TempView analog)
     load_start = time.time()
     with obs.span("load_catalog", cat="phase"):
-        sess = Session(_load(args, device), device=device)
+        sess = Session(_load(args, device,
+                             "spmd_chunk_rows" in spmd),
+                       device=device, **spmd)
     execution_times.append(
         (app_id, "CreateTempView all tables",
          int((time.time() - load_start) * 1000)))
@@ -710,7 +747,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_format", default="parquet",
                    choices=["parquet", "csv"])
     p.add_argument("--property_file",
-                   help="engine properties file (knobs recorded in reports)")
+                   help="engine properties file (knobs recorded in "
+                        "reports; spmd.* applied)")
+    p.add_argument("--property", action="append", metavar="KEY=VALUE",
+                   help="one engine property, after --property_file "
+                        "(repeatable): spmd.chunk_rows=auto|N streams the "
+                        "facts from host memory, spmd.prefetch_depth=N, "
+                        "spmd.threshold_rows=N")
     p.add_argument("--json_summary_folder",
                    help="folder for per-query JSON summaries")
     p.add_argument("--sub_queries",

@@ -44,9 +44,11 @@ The continuous-feed mode of :class:`StreamScheduler` (``open_stream``,
 (:mod:`ndstpu_torch.serve.server`), one stream a connection; the
 throughput run against a server is ``throughput.run_streams_serve``.
 
-Left for later slices of the port: engine properties are recorded and none
-is applied (the JAX package's ``apply_engine_properties``, its ``spmd.*``
-and ``jax.*`` settings); and ``--static_check``.
+Of the engine properties the ``spmd.*`` ones are applied to the inproc
+mode's shared session (the JAX package's scheduler.py:361-368; out-of-core
+execution, as in the power run); the rest are recorded and applied to
+nothing (the JAX package's ``apply_engine_properties`` and its ``jax.*``
+settings).  Left for a later slice: ``--static_check``.
 """
 
 from __future__ import annotations
@@ -343,8 +345,9 @@ def run_streams_inproc(stream_ids: List[str], cmd_template: List[str],
     # the whole point is ONE engine: refuse stream templates that
     # resolve to different warehouses/devices instead of guessing
     for flag in ("input_prefix", "generate", "generate_seed", "device",
-                 "input_format", "property_file", "compile_records"):
-        vals = {getattr(ns, flag, None) for ns in streams.values()}
+                 "input_format", "property_file", "property",
+                 "compile_records"):
+        vals = {str(getattr(ns, flag, None)) for ns in streams.values()}
         if len(vals) > 1:
             raise ValueError(
                 f"inproc streams must share one {flag}; the {{}} "
@@ -355,9 +358,8 @@ def run_streams_inproc(stream_ids: List[str], cmd_template: List[str],
     device = resolve_device(ns0.device)
     if any(ns.output_prefix for ns in streams.values()):
         loader._pyarrow()   # writing outputs needs pyarrow: refuse now
-    engine_conf: Dict[str, str] = {}
-    if ns0.property_file:
-        engine_conf.update(power.load_properties(ns0.property_file))
+    engine_conf = power.engine_properties(ns0)
+    spmd = power.spmd_settings(engine_conf)
     engine_conf.setdefault("device", ns0.device)
     engine_conf.setdefault("input_format", ns0.input_format)
     engine_conf.setdefault("throughput_mode", "inproc")
@@ -366,7 +368,9 @@ def run_streams_inproc(stream_ids: List[str], cmd_template: List[str],
     # for all streams (vs one per process in --mode process)
     load_start = time.time()
     with obs.span("load_catalog", cat="phase"):
-        session = power.Session(power._load(ns0, device), device=device)
+        session = power.Session(
+            power._load(ns0, device, "spmd_chunk_rows" in spmd),
+            device=device, **spmd)
     load_ms = int((time.time() - load_start) * 1000)
     if ns0.compile_records:
         obs.set_gauge("harness.compile_records.present",

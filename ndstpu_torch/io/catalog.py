@@ -35,6 +35,10 @@ class Catalog:
     # per-table monotonic version, bumped on every (re)register — the
     # invalidation key for device-resident caches (id() reuse is not sound)
     versions: Dict[str, int] = field(default_factory=dict)
+    # out-of-core scan sources (table -> io.loader.ChunkSource): the
+    # chunked executor (parallel/dplan.py) streams these tables' rows
+    # through the scan pool instead of slicing the resident copy
+    streams: Dict[str, object] = field(default_factory=dict)
 
     def register(self, name: str, table: columnar.Table) -> None:
         self.tables[name] = table
@@ -55,6 +59,16 @@ class Catalog:
         self.tables.pop(name, None)
         self.meta.pop(name, None)
         self.versions[name] = self.versions.get(name, 0) + 1
+
+    def on_host(self, name: str, device) -> bool:
+        """Whether ``name``'s columns live off ``device`` (a fact the
+        out-of-core generator left in host memory for a card)."""
+        t = self.tables[name]
+        for c in t.columns.values():
+            held = c.data.device.type if isinstance(c.data, torch.Tensor) \
+                else "cpu"
+            return torch.device(device).type != held
+        return False
 
     def get(self, name: str) -> columnar.Table:
         return self.tables[name]

@@ -18,6 +18,14 @@ Without pyarrow nothing here can read a file, and a read raises naming
 the missing package.  The H100's machine has no pyarrow: there the power
 run's load phase generates the warehouse on the card instead
 (``python -m ndstpu_torch.harness.power ... --generate SF``).
+
+The streaming scan of the out-of-core executor lives here too, as in the
+JAX package: :class:`ChunkSource` and :class:`TableChunkSource` (row
+ranges of a table in host memory or on the device), the read-ahead
+:class:`ChunkScanPool` and :func:`attach_stream_source`, with the
+``io.read`` fault site and the ``io.scan.*`` counters.
+``ParquetChunkSource`` and ``LakeChunkSource`` wait for the file slices
+(they read through pyarrow).
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from __future__ import annotations
 import glob
 import os
 import time
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ndstpu_torch import obs
 from ndstpu_torch import schema as nds_schema
@@ -164,3 +172,252 @@ def load_catalog(warehouse: str, tables: Optional[List[str]] = None,
                     obs.inc("io.scan.wait_s", time.monotonic() - t0)
                 cat.register(t, table)
     return cat
+
+
+# ---------------------------------------------------------------------------
+# Streaming out-of-core scan: chunk sources + read-ahead decode pool
+# (ndstpu/io/loader.py:228-318, :590-760)
+# ---------------------------------------------------------------------------
+
+
+class StreamUnsupported(RuntimeError):
+    """A table/column shape the streaming scan cannot serve (the caller
+    falls back to the resident path, never wedges)."""
+
+
+def _string_stream_reject(table: str, col: str) -> StreamUnsupported:
+    """Why a string column cannot stream, naming the knob that changes
+    the answer: streaming strings needs one code space for every chunk,
+    which the table's one dictionary (or, in a transcoded warehouse, its
+    frozen global dictionary) gives."""
+    from ndstpu_torch.io import gdict
+    if not gdict.enabled():
+        why = ("global dictionaries are disabled "
+               "(NDSTPU_GLOBAL_DICTS=0)")
+    else:
+        why = ("the source decodes each chunk with a dictionary of its "
+               "own")
+    return StreamUnsupported(
+        f"string column {col} of {table}: per-chunk dictionaries do not "
+        f"share a code space, and {why}")
+
+
+#: one decoded chunk: column name -> (data, validity or None = all
+#: valid), exactly ``count`` rows each, host arrays or tensors
+ChunkPayload = Dict[str, Tuple[object, object]]
+
+
+class ChunkSource:
+    """Row-range reads of a table's column subset in the engine's layout.
+    Implementations must be thread-safe for concurrent ``read`` calls
+    (the scan pool issues them from worker threads)."""
+
+    num_rows: int = 0
+    table: str = ""
+    columns: Sequence[str] = ()
+
+    def column_meta(self) -> Dict[str, tuple]:
+        """name -> (ctype, dtype, dictionary-or-None), the static
+        metadata the spine needs without touching row data."""
+        raise NotImplementedError
+
+    def read(self, start: int, count: int) -> ChunkPayload:
+        raise NotImplementedError
+
+
+class TableChunkSource(ChunkSource):
+    """Scan source over a resident :class:`columnar.Table` (in host
+    memory, or on the device) — a read is a slice, with no copy.  The
+    default source when no out-of-core stream is registered: the same
+    pipeline (scan pool -> staging ring -> device) runs over it, so the
+    streaming path has one shape wherever the rows live."""
+
+    def __init__(self, table: columnar.Table, name: str,
+                 columns: Sequence[str]):
+        self._t = table
+        self.table = name
+        self._cols = self.columns = list(columns)
+        self.num_rows = table.num_rows
+
+    def column_meta(self) -> Dict[str, tuple]:
+        return {n: (self._t.column(n).ctype, self._t.column(n).data.dtype,
+                    self._t.column(n).dictionary) for n in self._cols}
+
+    def read(self, start: int, count: int) -> ChunkPayload:
+        from ndstpu_torch import faults
+        faults.check("io.read", key=f"{self.table}@{start}")
+        out: ChunkPayload = {}
+        nbytes = 0
+        for n in self._cols:
+            c = self._t.column(n)
+            data = c.data[start:start + count]
+            valid = None if c.valid is None else \
+                c.valid[start:start + count]
+            nbytes += _nbytes(data) + (_nbytes(valid) if valid is not None
+                                       else 0)
+            out[n] = (data, valid)
+        obs.inc("io.scan.bytes", nbytes)
+        return out
+
+
+def _nbytes(a) -> int:
+    if hasattr(a, "element_size"):
+        return int(a.numel() * a.element_size())
+    return int(a.nbytes)
+
+
+class ChunkScanPool:
+    """Bounded read-ahead scan/decode pool in front of the executor.
+
+    Workers read the next ``depth`` chunks (in consumption order) while
+    the executor computes on the current one; ``get`` blocks only when
+    the pipeline is behind, and that block time is ``io.scan.wait_s``.
+    A failing worker read degrades the pool to synchronous reads
+    (``io.scan.degraded``) instead of wedging the run — the ``io.read``
+    fault site fires inside ``ChunkSource.read``.  A per-chunk
+    :class:`ndstpu_torch.engine.latch.KeyedLatch` keeps a synchronous
+    read and a late worker from reading the same chunk twice.
+    """
+
+    def __init__(self, read_fn: Callable[[int], ChunkPayload],
+                 starts: Sequence[int], workers: int = 2,
+                 depth: int = 2):
+        import threading
+
+        from ndstpu_torch.engine.latch import KeyedLatch
+        self._read = read_fn
+        self._starts = list(starts)
+        self._depth = max(int(depth), 0)
+        self._workers = max(int(workers), 1)
+        self._futs: Dict[int, object] = {}
+        self._next = 0          # index into _starts not yet scheduled
+        self._pool = None
+        self._degraded = False
+        self._latch = KeyedLatch()
+        # get() is called from the executor and the staging thread, so
+        # the scheduling bookkeeping must not race
+        self._sched_lock = threading.Lock()
+
+    def _ensure_pool(self):
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(
+                max_workers=self._workers,
+                thread_name_prefix="ndstpu-scan")
+        return self._pool
+
+    def _guarded_read(self, start: int) -> ChunkPayload:
+        with self._latch.holding(start):
+            return self._read(start)
+
+    def start_ahead(self) -> None:
+        """Start the read-ahead window before the first ``get``."""
+        self._schedule_ahead(-1)
+
+    def reset(self, next_idx: int = 0) -> None:
+        """Rewind the read-ahead window for another pass over the same
+        chunk sequence (a cached chunked query run again).  A degraded
+        pool stays degraded — the source already failed."""
+        with self._sched_lock:
+            for fut in self._futs.values():
+                fut.cancel()
+            self._futs.clear()
+            self._next = max(int(next_idx), 0)
+        self._schedule_ahead(next_idx - 1)
+
+    def _schedule_ahead(self, upto_idx: int) -> None:
+        if self._degraded or self._depth == 0:
+            return
+        with self._sched_lock:
+            limit = min(upto_idx + 1 + self._depth, len(self._starts))
+            while self._next < limit:
+                s = self._starts[self._next]
+                self._futs[s] = self._ensure_pool().submit(
+                    self._guarded_read, s)
+                self._next += 1
+
+    @staticmethod
+    def _wait_counter() -> str:
+        """Scan blocking on the staging thread is latency the ring
+        absorbs, not executor stall: it counts apart."""
+        import threading
+        if threading.current_thread().name.startswith("ndstpu-h2d"):
+            return "io.scan.wait_bg_s"
+        return "io.scan.wait_s"
+
+    def get(self, start: int) -> ChunkPayload:
+        try:
+            idx = self._starts.index(start)
+            with self._sched_lock:
+                self._next = max(self._next, idx)
+            self._schedule_ahead(idx)
+        except ValueError:
+            idx = None   # off-schedule read: serve synchronously
+        with self._sched_lock:
+            fut = self._futs.pop(start, None)
+        if fut is not None:
+            obs.inc("io.scan.ahead.hit" if fut.done()
+                    else "io.scan.ahead.miss")
+            t0 = time.monotonic()
+            try:
+                payload = fut.result()
+                obs.inc(self._wait_counter(), time.monotonic() - t0)
+                if idx is not None:
+                    self._schedule_ahead(idx + 1)
+                return payload
+            except Exception as e:  # noqa: BLE001 — degrade, don't wedge
+                self._degrade(e)
+        else:
+            obs.inc("io.scan.ahead.miss")
+        t0 = time.monotonic()
+        try:
+            return self._guarded_read(start)
+        finally:
+            obs.inc(self._wait_counter(), time.monotonic() - t0)
+
+    def _degrade(self, exc: Exception) -> None:
+        if not self._degraded:
+            self._degraded = True
+            obs.inc("io.scan.degraded")
+            obs.annotate(io_scan_degraded=f"{type(exc).__name__}: {exc}")
+        with self._sched_lock:
+            for fut in self._futs.values():
+                fut.cancel()
+            self._futs.clear()
+
+    def close(self) -> None:
+        with self._sched_lock:
+            for fut in self._futs.values():
+                fut.cancel()
+            self._futs.clear()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
+
+def attach_stream_source(catalog: Catalog, name: str,
+                         source: ChunkSource) -> None:
+    """Register an out-of-core scan source for a catalog table.  The
+    chunked executor streams this table's rows from the source; every
+    other path keeps using the resident copy."""
+    import numpy as np
+    if name not in catalog.tables:
+        raise KeyError(f"table {name} not in catalog")
+    if source.num_rows != catalog.get(name).num_rows:
+        raise ValueError(
+            f"stream source rows ({source.num_rows}) != resident rows "
+            f"({catalog.get(name).num_rows}) for {name}")
+    # string chunks must decode into the resident code space: the spine
+    # takes the resident dictionary as its column's metadata
+    resident = catalog.get(name)
+    for col, (ct, _dt, d) in source.column_meta().items():
+        if ct.kind != "string" or col not in resident.columns:
+            continue
+        rd = resident.column(col).dictionary
+        if d is None or rd is None or not np.array_equal(
+                np.asarray(d, dtype=object), np.asarray(rd, dtype=object)):
+            raise ValueError(
+                f"stream source dictionary for {name}.{col} does not "
+                f"match the resident dictionary — codes would disagree "
+                f"across chunks")
+    catalog.streams[name] = source

@@ -12,6 +12,7 @@ must equal the committed ``CANON_AUDIT.json``.  No part differs on zero
 rows, so the test lists no exception.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import pathlib
 

@@ -14,6 +14,7 @@ The first three port tests of ``tests/test_jaxexec.py`` on the same SQL
 rediscovery, the key latch, and parameters evaluated against literals.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import threading
 import warnings
 

@@ -2,6 +2,7 @@
 package's: the same 103 rendered parts, byte-identical templates and
 ``dists.json``, read from under ``ndstpu_torch/`` only."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import builtins
 import importlib
 import io

@@ -1,6 +1,7 @@
 """Corpus differential, part 5 of 5: see
 tests/test_torch_corpus_common.py."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 from test_torch_corpus_common import check_part, part, sessions  # noqa: F401

@@ -18,6 +18,7 @@ scale.  The parts of ``EMPTY`` that a larger warehouse gives rows
 (``FEW_ROWS``) are held the same way there, where each must find a
 row.  This module holds no tests itself."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import contextlib
 import fcntl
 import os

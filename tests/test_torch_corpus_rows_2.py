@@ -3,6 +3,7 @@ files' scale, part 2 of 2: each through the port and the JAX engine over
 a larger warehouse, where it must find a row.  See
 tests/test_torch_corpus_common.py."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 from test_torch_corpus_common import (check_part, larger,  # noqa: F401

@@ -6,6 +6,7 @@ at the spec's step scales; the distributions follow its ``gen_sale``,
 and keys are exact; shares are checked within four standard errors of
 the model's value."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import subprocess
 
 import numpy as np

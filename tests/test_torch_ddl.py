@@ -11,6 +11,7 @@ around them: the views epoch in the executor's keys, a replayed query
 rediscovering after an INSERT into its table, and compile records
 written under the keys of before the prefix preloading."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 from ndstpu.engine.planner import PlanError as JaxPlanError

@@ -8,6 +8,7 @@ replace catalog tables and never write one, so each test forks the
 module's warehouse: a new catalog holding the same tables.  This module
 holds no tests itself."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import os
 import subprocess
 

@@ -9,6 +9,7 @@ row by row, in order where the query fixes one.  Tolerance: bit-exact for
 int, decimal, date and string columns; 1e-5 relative for float columns
 (``tests/test_jaxexec.py::assert_tables_match``, the nds_validate rule)."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

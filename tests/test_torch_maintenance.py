@@ -13,6 +13,7 @@ functions that fail in the JAX package (LF_CR, LF_SR and LF_WR, at
 ``planner.py:257``) fail alike in the port; each other LF function
 inserts rows and each DF function deletes some."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 from ndstpu.harness import maintenance as jax_dm

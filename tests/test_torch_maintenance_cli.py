@@ -14,6 +14,7 @@ for an unknown function, the refused ``--micro_batch`` and the argument
 checks.  The runs after the first take a fork of the warehouse the first
 generated in place of generating their own."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import contextlib
 import csv
 import io

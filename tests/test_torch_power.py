@@ -23,6 +23,7 @@ and a run with a budget too small for any query is partial on both sides,
 with the same ``partial_reasons`` keys.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import csv
 import json
 import os

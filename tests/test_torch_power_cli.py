@@ -15,6 +15,7 @@
   ``atomic.read_jsonl`` equal the JAX package's on a table of cases.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import csv
 import json
 import os

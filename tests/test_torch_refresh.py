@@ -9,6 +9,7 @@ dimension row names one of the port's dimensions at that scale (or the
 maintenance functions' joins would find nothing); and each table has the
 same values whatever ``tables=`` asks for."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

@@ -25,6 +25,7 @@ against the JAX package's (``jaxexec._cut_segments`` and its
   the earlier format loads nothing.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import pickle
 
 import pytest

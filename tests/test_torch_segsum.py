@@ -7,6 +7,7 @@ mode, as tests/test_ops.py runs it.  Inputs are made with numpy from a
 seed.  The CUDA kernel has no CPU mode: ``chip_smoke.py`` compares it
 with the plain version on the card."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ kernel has no CPU mode: ``chip_smoke.py`` compares it with the plain
 version on the card.  The segment-sum bench runs here on the CPU, where
 the kernels' plain versions stand in for them."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import os
 import subprocess

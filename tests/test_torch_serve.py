@@ -24,6 +24,7 @@ the fleet's launch of the port's server, and a drain that races a
 connection's start (the JAX server's drain dies there).
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import os
 import socket
@@ -119,6 +120,22 @@ def _start(pkg, tmp_path, tag, session=None, **cfg):
     return srv
 
 
+def _settled(srv, timeout_s: float = 10.0) -> None:
+    """Wait until every connection the server accepted has started its
+    executor thread.  The JAX server's drain joins each connection's
+    thread, and joining one its accept thread made but has not started
+    yet raises (``ndstpu/serve/server.py:309``, ROADMAP C); the port's
+    drain skips such a thread.  Waiting first keeps that race of the
+    reference out of what these cases compare."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        with srv._conns_lock:
+            threads = [c.executor for c in srv._conns.values()]
+        if all(th is None or th._started.is_set() for th in threads):
+            return
+        time.sleep(0.01)
+
+
 @pytest.fixture
 def serve_env(pkg, tmp_path):
     """A started server of ``pkg`` over its tiny cpu session and one
@@ -139,6 +156,7 @@ def serve_env(pkg, tmp_path):
     for srv, cli in made:
         cli.close()
         if not srv.draining:
+            _settled(srv)
             srv.drain(reason="teardown")
 
 
@@ -803,6 +821,7 @@ def test_the_two_servers_answer_alike(tmp_path):
                      dict(req, id=f"r{i}", tenant="same"))
                 for i, req in enumerate(REQUESTS)]
         finally:
+            _settled(srv)
             srv.drain(reason="test")
     assert answers["torch"] == answers["jax"]
     assert answers["torch"][2]["data"] == [[0, 18, 4], [1, 12, 3],

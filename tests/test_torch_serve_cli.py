@@ -32,6 +32,7 @@ Then the port alone:
   ``stats`` op) and the same answer.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import datetime
 import json
 import math

@@ -11,6 +11,7 @@ statement ends in ORDER BY.  The memo cases count the port's executions
 of a node with a spy, as tests/test_torch_window.py spies on the kernel
 gate."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 

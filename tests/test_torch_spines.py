@@ -26,6 +26,7 @@
   streams.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import dataclasses
 import json
 import pathlib

@@ -1,6 +1,7 @@
 """Template differential, part 1 of 3: see
 tests/test_torch_templates_common.py."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 from test_torch_templates_common import (  # noqa: F401

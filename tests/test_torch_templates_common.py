@@ -15,6 +15,7 @@ The warehouse is the SF 0.002 one tests/test_torch_engine.py reads
 (``test_torch_corpus_common.jax_warehouse``, built once a test session).
 This module holds no tests itself."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import pytest
 
 from ndstpu.io import loader

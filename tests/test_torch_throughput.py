@@ -23,6 +23,7 @@
   report.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import json
 import sys
 import textwrap

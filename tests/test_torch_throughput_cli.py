@@ -29,6 +29,7 @@ appends rows of the engine ``torch-cpu``, against which a second run's
 sentinel judges.
 """
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import csv
 import json
 import os

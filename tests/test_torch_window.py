@@ -8,6 +8,7 @@ through ``Session(backend="tpu")`` (JAX on the CPU) and through the port's
 string columns exactly, floats within 1e-5 relative, in order where the
 statement ends in ORDER BY."""
 
+import test_torch_threads  # noqa: F401  (one torch thread a worker)
 import numpy as np
 import pytest
 
