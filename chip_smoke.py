@@ -39,19 +39,30 @@ non-zero:
    independent of the engine;
 6. bench: ``ndstpu_torch.ops.bench``'s main at its defaults, the path
    that runs ``segsum_f32``;
-7. (the store slice, q9, q43, q88 and q93, went in PR 14: all four are
-   corpus parts, held against the CPU in phase 10 and run at SF 20 in
-   phase 11);
-8. (the store window and rollup reports, q36, q47, q67, q89 and q98,
-   and 9. the set-operation and distinct reports, q2, q28, q41 and q76,
-   each held against a numpy reference, went in PR 14: all nine are
-   corpus parts, held against the CPU in phase 10 and run at SF 20 in
-   phase 11.)  Their kernel checks stay: each of q36's finest-grain
-   ``segsum_decimal`` calls, and every call of one run of each
-   set-operation report, held bit-exact against the plain version at its
-   own inputs, the first of each checked and timed as a kernel shape as
-   in phase 4 (q28's banded average is that path's one call); and decimal
-   descales on the card against the CPU's IEEE quotients.
+7. store slice: q9, q43, q88 and q93 through the same session, recorded
+   and held against the numpy reference as in phase 5 (decimals exact,
+   q9's averages within 1e-5 relative); then q88 once more with the name
+   of a generated store for the template's 'ese', which names none, so
+   that its four counts are not 0;
+8. store window and rollup reports: q36, q47, q67, q89 and q98 (rollups
+   with ``grouping()``, ranks, windowed aggregates over aggregates, a
+   self-join on rank) through the same session, recorded and held
+   against the numpy reference as in phase 5 (decimals exact, floats
+   within 1e-5 relative, in the query's order); q36's rollup must reach
+   ``segsum_decimal``.  Before the path runs, each of q36's finest-grain
+   ``segsum_decimal`` calls is captured and checked and timed at its own
+   inputs as in phase 4 (bit-exact against the plain version);
+9. set operations and distinct: q28 (six ``count(distinct)`` branches
+   over store_sales), q41 (DISTINCT with a correlated count), q76 (UNION
+   ALL of the three channels' NULL-key rows; once more without its
+   LIMIT, so that every group of the union is held) and q2 (UNION ALL of
+   the web and catalog channels under a CTE the plan holds twice, which
+   the executor's memo runs once) through the same session, recorded
+   and held against the numpy reference as in phase 5.  Before the path
+   runs, every ``segsum_decimal`` call of one run of each of the four is
+   held bit-exact against the plain version at its own inputs, and each
+   query's first is checked and timed as a kernel shape as in phase 4
+   (q28's banded average is the path's one call).
 
 10. corpus check: the store channel freed, the whole warehouse (25
     tables, 429 columns) generated on the card at ``CHECK_SCALE`` and
@@ -95,7 +106,9 @@ non-zero:
     but did not in phase 10 fails the script;
 12. power: with this process holding no table or graph, streams 0, 1
     and 2 written by ``python -m ndstpu_torch.queries.streamgen`` (stream
-    0's parts must be the corpus's renderings) and stream 0 run once by
+    0's parts must be the corpus's renderings) and stream 0, cut to the
+    28 parts of ``power_parts()`` (to pay for phase 16; phase 11
+    runs all 103 at the same scale), run once by
     ``python -m ndstpu_torch.harness.power``, generating the warehouse at
     ``CORPUS_SCALE`` on the card and keeping the run ledger ``LEDGER``,
     new each script run: cold, saving compile records (no second run
@@ -106,9 +119,9 @@ non-zero:
     phase 11's), the metrics sidecar's discoveries, compiled-plan hits
     and misses, captures and ``segsum_decimal`` launches, its ledger rows
     and sentinel verdicts, the wall seconds;
-13. throughput: (a) streams 1 and 2, cut to about half their parts
-    (every other corpus part and the seven whose spines splice across the
-    streams; PR 14, to pay for phase 16), as two threads over one
+13. throughput: (a) streams 1 and 2, cut to 17 parts (the seven whose
+    spines splice across the streams and ``SERVE_PARTS``; to pay
+    for phase 16), as two threads over one
     shared session in this process (``scheduler.run_streams_inproc``,
     what ``python -m ndstpu_torch.harness.throughput --mode inproc
     --concurrent 2`` runs), the warehouse generated once at
@@ -169,9 +182,13 @@ non-zero:
     in a process of its own: its time log must have the 11 function rows
     and ``Data Maintenance Time``, its summaries the same three
     ``Failed``; one line with each function's ms and status, the rows
-    each changed and the peak device memory.  (The statements' rows
-    against an independent ``count(*)`` each, in another process, went in
-    PR 14);
+    each changed and the peak device memory.  Then
+    ``maintenance_counts`` at ``CHECK_SCALE`` (once SF 20) in
+    another process: before each DELETE a
+    ``count(*)`` of its WHERE, before each INSERT one of its SELECT, each
+    equal to the rows the statement removed or added, and at the end the
+    device bytes held beyond the live tables (under 1 GiB: no replaced
+    table outlives its last user);
 16. out-of-core: the warehouse generated on the card at ``ooc_scale()``
     (SF 100 where half the host's memory holds its facts, else the
     largest multiple of 10 that fits, at least SF 30: past the SF 20 the
@@ -191,7 +208,7 @@ non-zero:
     device bytes, the host bytes of the facts and the process's resident
     bytes.
 
-Phases 5, 6, 11, 12, 13, 14, 15 (a) and 16 are the main paths: the
+Phases 5, 6, 7, 8, 9, 11, 12, 13, 14, 15 (a) and 16 are the main paths: the
 kernel launch counts (``segsum.LAUNCHES``, the wrapper's own, and
 ``segsum.REPLAY_LAUNCHES``, those of graph replays, counted by
 ``torch.profiler`` from the card's kernel events in the replays it
@@ -219,12 +236,16 @@ warm, not three times; and, to pay for the maintenance phase (about 100 s
 on an H100), the power phase runs stream 0 once, cold, not a second time
 preloading the first run's records (about 100 s; phase 13 preloads
 them); and, to pay for the out-of-core phase and the check's chunked
-runs (about 180-210 s on an H100), the store-channel reports of phases
-7-9 against their numpy references (their 13 queries are corpus parts;
-about 45 s), the maintenance statements' independent counts (about 32
-s), and half the parts of the throughput phase's streams (about 110 s).  The
-widths, the scales of the corpus, power, throughput and maintenance
-phases and the streams are whole.
+runs (about 180-210 s on an H100), the throughput phase's streams run
+17 of their parts, the seven whose spines splice and the serve phase's
+(about 180 s); the power phase runs 28 parts of stream 0, every eighth
+and those the throughput and serve phases preload (about 90 s); the
+maintenance statements' counts run at ``CHECK_SCALE``, not SF 20
+(about 25 s); and the out-of-core phase does not rerun at half the
+chunk rows a part whose "auto" run streamed no chunk (its window spine
+runs resident: the same run again, about 1.4 s).  The widths, the
+scales of the corpus, power, throughput and maintenance phases and the
+streams are whole.
 """
 
 from __future__ import annotations
@@ -244,7 +265,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ndstpu_torch.queries import QUERIES, SETOP_QUERIES, WINDOW_QUERIES
+from ndstpu_torch.queries import (Q9_BUCKETS, QUERIES, SETOP_QUERIES,
+                                  STORE_QUERIES, WINDOW_QUERIES)
 
 # H100 SXM HBM3 rate (NVIDIA data sheet): the bound of a byte-bound kernel
 HBM_BYTES_PER_S = 3.35e12
@@ -799,9 +821,490 @@ class Reference:
         return sort_rows(out, spec)
 
 
+def _host(cat, table, col):
+    """(data, valid or None) of one generated column, on the host; string
+    columns decoded through their dictionary."""
+    c = cat.get(table).column(col)
+    data = c.data.cpu().numpy()
+    if c.dictionary is not None:
+        data = c.dictionary[data]
+    return data, None if c.valid is None else c.valid.cpu().numpy()
+
+
+def _dense_index(dim_keys: np.ndarray, keys: np.ndarray, valid) -> np.ndarray:
+    """Row of the (dense, ascending) dimension key each fact key joins,
+    or -1 for a NULL key."""
+    assert (np.diff(dim_keys) == 1).all()
+    idx = keys.astype(np.int64) - int(dim_keys[0])
+    assert ((idx >= 0) & (idx < len(dim_keys)))[
+        valid if valid is not None else slice(None)].all()
+    return idx if valid is None else np.where(valid, idx, -1)
+
+
+def _exact_sums(groups: np.ndarray, vals: np.ndarray, n: int) -> np.ndarray:
+    """Per-group int64 sums through a float64 bincount, which is exact
+    while every partial sum stays below 2^53 (checked)."""
+    bound = np.bincount(groups, weights=np.abs(vals), minlength=n)
+    assert bound.max(initial=0) < 2 ** 53
+    return np.bincount(groups, weights=vals, minlength=n).astype(np.int64)
+
+
+def _runs(sorted_keys: np.ndarray) -> np.ndarray:
+    """Start of each run of equal values in a sorted array."""
+    return np.flatnonzero(np.r_[True, sorted_keys[1:] != sorted_keys[:-1]])
+
+
+def _first_rows(rows: np.ndarray, *keys) -> np.ndarray:
+    """``rows`` sorted by ``keys`` (the first the primary), cut after the
+    LIMIT-th and the rows that tie with it on every key."""
+    order = rows[np.lexsort(tuple(k[rows] for k in reversed(keys)))]
+    if len(order) <= LIMIT:
+        return order
+    last = order[LIMIT - 1]
+    n = LIMIT
+    while n < len(order) and all(k[order[n]] == k[last] for k in keys):
+        n += 1
+    return order[:n]
+
+
 def _null_first(row) -> tuple:
     """Ascending sort key with NULL (None) before every value."""
     return tuple((0, 0) if x is None else (1, x) for x in row)
+
+
+DAYS = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday", "Friday",
+        "Saturday")
+# each window report's ORDER BY over its result row, as a sort key
+WINDOW_ORDER = {
+    # lochierarchy desc, case when lochierarchy = 0 then i_category end,
+    # rank_within_parent
+    "q36": lambda r: (-r[3],) + _null_first(
+        (r[1] if r[3] == 0 else None, r[4])),
+    # sum_sales - avg_monthly_sales (the engine's float64 difference),
+    # s_store_name
+    "q47": lambda r: (r[7] / 100 - r[6], r[2]),
+    # all ten columns, ascending
+    "q67": _null_first,
+    "q89": lambda r: (r[6] / 100 - r[7], r[3]),
+    "q98": lambda r: (r[2], r[3], r[0], r[1], r[6]),
+}
+
+
+class StoreReference:
+    """q9, q43, q88, q93 and the window and rollup reports q36, q47, q67,
+    q89 and q98 answered from host copies of the generated tables with
+    numpy alone, written from the SQL and independent of the engine; each
+    method returns the result rows in the query's order (decimals as
+    scaled int64, averages and ratios as floats, computed with the
+    engine's float64 operations in the same order, so that ranks and ties
+    come out the same)."""
+
+    def __init__(self, cat):
+        self.cat = cat
+        self.memo = {}
+        self.sizes = {}     # intermediate sizes the reports reach
+
+    def col(self, table, col):
+        return _host(self.cat, table, col)[0]
+
+    def codes(self, table, col):
+        """(codes, dictionary) of a string column on the host."""
+        c = self.cat.get(table).column(col)
+        return c.data.cpu().numpy(), c.dictionary
+
+    def fact(self, col):
+        """store_sales column on the host (memoized)."""
+        if col not in self.memo:
+            self.memo[col] = _host(self.cat, "store_sales", col)
+        return self.memo[col]
+
+    def dim_rows(self, fk, table, key):
+        """Row of ``table`` each store_sales row joins through ``fk``, or
+        -1 for a NULL key (memoized)."""
+        if (fk, table) not in self.memo:
+            keys, ok = self.fact(fk)
+            self.memo[(fk, table)] = _dense_index(self.col(table, key), keys,
+                                                  ok)
+        return self.memo[(fk, table)]
+
+    def star(self, date_ok, item_ok=None, store_ok=None):
+        """store_sales rows (as indices) that join date_dim, item and
+        store and pass each dimension's mask, with their dimension rows."""
+        d = self.dim_rows("ss_sold_date_sk", "date_dim", "d_date_sk")
+        i = self.dim_rows("ss_item_sk", "item", "i_item_sk")
+        st = self.dim_rows("ss_store_sk", "store", "s_store_sk")
+        sel = (d >= 0) & np.append(date_ok, False)[d]
+        if item_ok is not None:
+            sel &= np.append(item_ok, False)[i]
+        if store_ok is not None:
+            sel &= (st >= 0) & np.append(store_ok, False)[st]
+        rows = np.flatnonzero(sel)
+        return rows, d[rows], i[rows], st[rows]
+
+    def q36(self) -> list:
+        """Gross margin by the rollup of (i_category, i_class) over 1998
+        sales in eight states, ranked by margin within each parent."""
+        states = ("AL", "GA", "CA", "CO", "FL", "ID", "IL", "IN")
+        rows, _, i, _ = self.star(
+            self.col("date_dim", "d_year") == 1998,
+            store_ok=np.isin(self.col("store", "s_state"), states))
+        cat, cat_dict = self.codes("item", "i_category")
+        cls, cls_dict = self.codes("item", "i_class")
+        ncls = len(cls_dict)
+        g = cat[i].astype(np.int64) * ncls + cls[i]
+        nb = len(cat_dict) * ncls
+        profit = _exact_sums(g, self.fact("ss_net_profit")[0][rows], nb)
+        sales = _exact_sums(g, self.fact("ss_ext_sales_price")[0][rows], nb)
+        present = np.bincount(g, minlength=nb) > 0
+        # one entry per group of each rollup level: (keys, profit, sales)
+        levels = {0: [((str(cat_dict[b // ncls]), str(cls_dict[b % ncls])),
+                       profit[b], sales[b]) for b in np.flatnonzero(present)]}
+        by_cat = {}
+        for (c, _), pr, sa in levels[0]:
+            t = by_cat.setdefault(c, [0, 0])
+            t[0] += pr
+            t[1] += sa
+        levels[1] = [((c, None), pr, sa) for c, (pr, sa) in by_cat.items()]
+        levels[2] = [((None, None), int(profit.sum()), int(sales.sum()))]
+        out = []
+        for lvl, groups in levels.items():
+            # margin as the engine divides decimals: each sum / 100 in
+            # float64, then the quotient
+            gm = [(float(pr) / 100) / (float(sa) / 100) for _, pr, sa in groups]
+            for (keys, _, _), m in zip(groups, gm):
+                peers = [x for (k2, _, _), x in zip(groups, gm)
+                         if lvl != 0 or k2[0] == keys[0]]
+                rank = 1 + sum(x < m for x in peers)
+                out.append((m, keys[0], keys[1], lvl, rank))
+        return sorted(out, key=WINDOW_ORDER["q36"])
+
+    def _monthly(self, date_ok, item_ok, keys):
+        """sum(ss_sales_price) by the item and store string attributes
+        ``keys`` and the sale's (d_year, d_moy), for the sales that pass
+        the masks: (each group's key codes by column, with d_year and
+        d_moy as values; the dictionaries; the sums), groups in the order
+        of (keys, d_year, d_moy)."""
+        rows, d, i, st = self.star(date_ok, item_ok, np.ones(
+            len(self.col("store", "s_store_sk")), bool))
+        parts, dicts = [], {}
+        for table, col in keys:
+            code, dicts[col] = self.codes(table, col)
+            parts.append(code[i if table == "item" else st].astype(np.int64))
+        parts.append(self.col("date_dim", "d_year")[d].astype(np.int64))
+        parts.append(self.col("date_dim", "d_moy")[d].astype(np.int64))
+        radix = [len(dicts[c]) for _, c in keys] + [3000, 13]
+        comp = np.zeros(len(rows), np.int64)
+        for p, r in zip(parts, radix):
+            comp = comp * r + p
+        uniq, inv = np.unique(comp, return_inverse=True)
+        sums = _exact_sums(inv.reshape(-1), self.fact("ss_sales_price")[0][
+            rows], len(uniq))
+        vals = []
+        for r in reversed(radix):
+            vals.append(uniq % r)
+            uniq = uniq // r
+        vals.reverse()
+        names = [c for _, c in keys] + ["d_year", "d_moy"]
+        return dict(zip(names, vals)), dicts, sums
+
+    @staticmethod
+    def _partition_avg(part_keys, sums):
+        """avg of ``sums`` over each partition of equal ``part_keys`` rows,
+        as the engine's windowed avg of a decimal computes it: the exact
+        int64 total in float64, over the count, over 10^scale."""
+        comp = np.zeros(len(sums), np.int64)
+        for p in part_keys:
+            comp = comp * (int(p.max(initial=0)) + 1) + p
+        inv = np.unique(comp, return_inverse=True)[1].reshape(-1)
+        tot = _exact_sums(inv, sums, inv.max() + 1)
+        cnt = np.bincount(inv)
+        return (tot.astype(np.float64) / cnt / 100)[inv]
+
+    def q89(self) -> list:
+        """Monthly 1998 sales by item class, brand and store, against
+        their partition's average, for six (category, class) pairs."""
+        cat = self.col("item", "i_category")
+        cls = self.col("item", "i_class")
+        item_ok = (np.isin(cat, ("Books", "Electronics", "Sports")) &
+                   np.isin(cls, ("computers", "stereo", "football"))) | \
+            (np.isin(cat, ("Men", "Jewelry", "Women")) &
+             np.isin(cls, ("shirts", "birdal", "dresses")))
+        keys = (("item", "i_category"), ("item", "i_class"),
+                ("item", "i_brand"), ("store", "s_store_name"),
+                ("store", "s_company_name"))
+        g, dicts, sums = self._monthly(
+            self.col("date_dim", "d_year") == 1998, item_ok, keys)
+        avg = self._partition_avg(
+            [g[k] for k in ("i_category", "i_brand", "s_store_name",
+                            "s_company_name")], sums)
+        # the engine's float64 operations, in its order
+        dev = sums.astype(np.float64) / 100 - avg
+        with np.errstate(divide="ignore", invalid="ignore"):
+            keep = (avg != 0) & (np.abs(dev) / avg > 0.1)
+        out = [tuple(str(dicts[c][g[c][j]]) for _, c in keys) +
+               (int(g["d_moy"][j]), int(sums[j]), float(avg[j]))
+               for j in _first_rows(np.flatnonzero(keep), dev,
+                                    g["s_store_name"])]
+        return sorted(out, key=WINDOW_ORDER["q89"])
+
+    def q47(self) -> list:
+        """Monthly 2001 sales by brand and store against the year's
+        average, with the months before and after in the store's own
+        sequence of months."""
+        year = self.col("date_dim", "d_year")
+        moy = self.col("date_dim", "d_moy")
+        date_ok = (year == 2001) | ((year == 2000) & (moy == 12)) | \
+            ((year == 2002) & (moy == 1))
+        keys = (("item", "i_category"), ("item", "i_brand"),
+                ("store", "s_store_name"), ("store", "s_company_name"))
+        g, dicts, sums = self._monthly(date_ok, None, keys)
+        self.sizes["q47 monthly groups"] = len(sums)
+        part = [g[k] for _, k in keys]
+        avg = self._partition_avg(part + [g["d_year"]], sums)
+        # the groups come sorted by (keys, year, month): rank within the
+        # four keys is the position in that order
+        pid = np.zeros(len(sums), np.int64)
+        for p in part:
+            pid = pid * (p.max(initial=0) + 1) + p
+        same_prev = np.r_[False, pid[1:] == pid[:-1]]
+        same_next = np.r_[pid[:-1] == pid[1:], False]
+        dev = sums.astype(np.float64) / 100 - avg
+        with np.errstate(divide="ignore", invalid="ignore"):
+            keep = same_prev & same_next & (g["d_year"] == 2001) & \
+                (avg > 0) & (np.abs(dev) / avg > 0.1)
+        out = [tuple(str(dicts[c][g[c][j]]) for _, c in keys) +
+               (2001, int(g["d_moy"][j]), float(avg[j]), int(sums[j]),
+                int(sums[j - 1]), int(sums[j + 1]))
+               for j in _first_rows(np.flatnonzero(keep), dev,
+                                    g["s_store_name"])]
+        return sorted(out, key=WINDOW_ORDER["q47"])
+
+    def q98(self) -> list:
+        """Each item's revenue over 31 days of 1999 in three categories,
+        and its share of its class's revenue."""
+        day0 = int((np.datetime64("1999-02-22") -
+                    np.datetime64("1970-01-01")).astype(np.int64))
+        date = self.col("date_dim", "d_date").astype(np.int64)
+        cat, cat_dict = self.codes("item", "i_category")
+        item_ok = np.isin(cat_dict[cat], ("Men", "Women", "Jewelry"))
+        rows, _, i, _ = self.star((date >= day0) & (date <= day0 + 30),
+                                  item_ok)
+        n_item = len(cat)
+        item_id = self.col("item", "i_item_id")
+        # i_item_id is unique (checked), so its groups are the items
+        assert len(set(item_id.tolist())) == n_item
+        rev = _exact_sums(i, self.fact("ss_ext_sales_price")[0][rows],
+                          n_item)
+        sold = np.flatnonzero(np.bincount(i, minlength=n_item) > 0)
+        cls, cls_dict = self.codes("item", "i_class")
+        class_rev = _exact_sums(cls[sold], rev[sold], len(cls_dict))
+        desc = self.col("item", "i_item_desc")
+        price = self.col("item", "i_current_price")
+        out = []
+        for j in sold.tolist():
+            # sum * 100 (scale 2) over the class sum, as the engine divides
+            # decimals: each operand / 100 in float64, then the quotient
+            ratio = (float(rev[j] * 100) / 100) / \
+                (float(class_rev[cls[j]]) / 100)
+            out.append((str(item_id[j]), str(desc[j]), str(cat_dict[cat[j]]),
+                        str(cls_dict[cls[j]]), int(price[j]), int(rev[j]),
+                        ratio))
+        return sorted(out, key=WINDOW_ORDER["q98"])
+
+    def q67(self) -> list:
+        """The 8-level rollup of sales by item, month and store over twelve
+        months, ranked by sales within each category; the rows ranked 100
+        or better, in the query's order."""
+        seq = self.col("date_dim", "d_month_seq")
+        months = np.arange(1193, 1193 + 12)
+        n_store = len(self.col("store", "s_store_sk"))
+        rows, d, i, st = self.star(np.isin(seq, months),
+                                   store_ok=np.ones(n_store, bool))
+        sales = self.fact("ss_sales_price")[0][rows] * \
+            self.fact("ss_quantity")[0][rows]
+        # each month's (year, quarter, month), and its (year, quarter) and
+        # year as indices that grow with the month
+        first = np.array([np.flatnonzero(seq == m)[0] for m in months])
+        m_year, m_qoy, m_moy = (self.col("date_dim", c)[first]
+                                for c in ("d_year", "d_qoy", "d_moy"))
+        m_yq = np.unique(m_year * 4 + m_qoy, return_inverse=True)[1]
+        m_y = np.unique(m_year, return_inverse=True)[1]
+        # finest level (item, month, store): sorted item-major, so each
+        # coarser level down to the item sums runs of the finest groups
+        fine, inv = np.unique((i.astype(np.int64) * 12 + seq[d] - 1193) *
+                              n_store + st, return_inverse=True)
+        fsum = _exact_sums(inv.reshape(-1), sales, len(fine))
+        f_item = fine // (12 * n_store)
+        f_month = (fine // n_store) % 12
+        cat, cat_dict = self.codes("item", "i_category")
+        cls, cls_dict = self.codes("item", "i_class")
+        brand, brand_dict = self.codes("item", "i_brand")
+        pname = self.col("item", "i_product_name")
+        store_id = self.col("store", "s_store_id")
+        # product names and store ids are unique (checked), so grouping by
+        # item and store is grouping by the rollup's keys
+        assert len(set(pname.tolist())) == len(pname)
+        assert len(set(store_id.tolist())) == n_store
+
+        def keys(j, n):
+            """The 8 rollup keys of finest group j, the last 8 - n NULL."""
+            it, m = f_item[j], f_month[j]
+            full = (str(cat_dict[cat[it]]), str(cls_dict[cls[it]]),
+                    str(brand_dict[brand[it]]), str(pname[it]),
+                    int(m_year[m]), int(m_qoy[m]), int(m_moy[m]),
+                    str(store_id[fine[j] % n_store]))
+            return full[:n] + (None,) * (8 - n)
+
+        # per level: (finest group standing for each group, category code
+        # of each group, sums); the category of the grand total is -1
+        levels = {8: (np.arange(len(fine)), cat[f_item], fsum)}
+        for n, key in ((7, fine // n_store), (6, f_item * 12 + m_yq[f_month]),
+                       (5, f_item * 12 + m_y[f_month]), (4, f_item)):
+            starts = _runs(key)
+            levels[n] = (starts, cat[f_item[starts]],
+                         np.add.reduceat(fsum, starts))
+        it_rep, it_sum = levels[4][0], levels[4][2]
+        attrs = (cat[f_item[it_rep]], cls[f_item[it_rep]],
+                 brand[f_item[it_rep]])
+        radix = (len(cat_dict), len(cls_dict), len(brand_dict))
+        for n in (3, 2, 1):
+            comp = np.zeros(len(it_rep), np.int64)
+            for a, r in zip(attrs[:n], radix):
+                comp = comp * r + a
+            _, first_of, inv2 = np.unique(comp, return_index=True,
+                                          return_inverse=True)
+            inv2 = inv2.reshape(-1)
+            rep = it_rep[first_of]
+            levels[n] = (rep, cat[f_item[rep]],
+                         _exact_sums(inv2, it_sum, len(first_of)))
+        levels[0] = (np.zeros(1, np.int64), np.array([-1]),
+                     np.array([int(fsum.sum())]))
+        self.sizes.update({"q67 joined rows": len(rows),
+                           "q67 finest groups": len(fine),
+                           "q67 rollup groups": sum(
+                               len(lv[2]) for lv in levels.values())})
+        # rank within each category (the grand total alone in the NULL
+        # category's partition): rank <= 100 iff the sum is at least the
+        # partition's 100th largest
+        out = []
+        for c in range(-1, len(cat_dict)):
+            vals = np.concatenate([tot[cats == c]
+                                   for _, cats, tot in levels.values()])
+            if not len(vals):
+                continue
+            cut = np.partition(vals, max(len(vals) - 100, 0))[
+                max(len(vals) - 100, 0)]
+            top = np.sort(vals[vals >= cut])
+            for n, (rep, cats, tot) in levels.items():
+                for j in np.flatnonzero((cats == c) & (tot >= cut)):
+                    rank = 1 + len(top) - int(np.searchsorted(
+                        top, tot[j], side="right"))
+                    out.append(keys(rep[j], n) + (int(tot[j]), rank))
+        return sorted(out, key=WINDOW_ORDER["q67"])
+
+    def q9(self) -> list:
+        if not (self.col("reason", "r_reason_sk") == 1).any():
+            return []
+        q = self.col("store_sales", "ss_quantity")
+        row = []
+        for lo, hi, t in Q9_BUCKETS:
+            sel = (q >= lo) & (q <= hi)
+            n = int(sel.sum())
+            vals = self.col("store_sales", "ss_ext_discount_amt"
+                            if n > t else "ss_net_paid")
+            row.append(int(vals[sel].sum()) / n / 100 if n else None)
+        return [tuple(row)]
+
+    def q43(self) -> list:
+        date_sk, date_ok = _host(self.cat, "store_sales", "ss_sold_date_sk")
+        store_sk, store_ok = _host(self.cat, "store_sales", "ss_store_sk")
+        price = self.col("store_sales", "ss_sales_price")
+        didx = _dense_index(self.col("date_dim", "d_date_sk"), date_sk,
+                            date_ok)
+        sidx = _dense_index(self.col("store", "s_store_sk"), store_sk,
+                            store_ok)
+        day = np.array([DAYS.index(d) for d in
+                        self.col("date_dim", "d_day_name")] + [0])
+        year_ok = np.append(self.col("date_dim", "d_year") == 1999, False)
+        gmt_ok = np.append(self.col("store", "s_gmt_offset") == -600, False)
+        sel = year_ok[didx] & gmt_ok[sidx]
+        n_store = len(gmt_ok) - 1
+        grp = sidx[sel] * 7 + day[didx[sel]]
+        # integer sums below 2^53 are exact in float64
+        sums = np.bincount(grp, weights=price[sel], minlength=n_store * 7)
+        cnts = np.bincount(grp, minlength=n_store * 7)
+        assert sums.max(initial=0) < 2 ** 53
+        names = self.col("store", "s_store_name")
+        ids = self.col("store", "s_store_id")
+        assert len(set(ids.tolist())) == n_store
+        out = []
+        for st in range(n_store):
+            c = cnts[st * 7:(st + 1) * 7]
+            if c.sum() == 0:
+                continue
+            out.append((names[st], ids[st]) + tuple(
+                int(v) if k else None
+                for v, k in zip(sums[st * 7:(st + 1) * 7], c)))
+        return sorted(out, key=lambda r: (r[0], r[1]))[:LIMIT]
+
+    def q88(self, store_name: str = "ese") -> list:
+        time_sk, _ = _host(self.cat, "store_sales", "ss_sold_time_sk")
+        hdemo, _ = _host(self.cat, "store_sales", "ss_hdemo_sk")
+        store_sk, store_ok = _host(self.cat, "store_sales", "ss_store_sk")
+        tidx = _dense_index(self.col("time_dim", "t_time_sk"), time_sk, None)
+        hidx = _dense_index(self.col("household_demographics", "hd_demo_sk"),
+                            hdemo, None)
+        sidx = _dense_index(self.col("store", "s_store_sk"), store_sk,
+                            store_ok)
+        named = np.append(self.col("store", "s_store_name") == store_name,
+                          False)
+        base = (self.col("household_demographics", "hd_dep_count")[hidx]
+                == 3) & named[sidx]
+        hour = self.col("time_dim", "t_hour")[tidx]
+        minute = self.col("time_dim", "t_minute")[tidx]
+        row = []
+        for h, late in ((8, True), (9, False), (9, True), (10, False)):
+            part = (minute >= 30) if late else (minute < 30)
+            row.append(int((base & (hour == h) & part).sum()))
+        return [tuple(row)]
+
+    def q93(self) -> list:
+        # the reasons named 'reason 35'
+        rsk = self.col("reason", "r_reason_sk")
+        wanted = rsk[self.col("reason", "r_reason_desc") == "reason 35"]
+        sr_reason, sr_reason_ok = _host(self.cat, "store_returns",
+                                        "sr_reason_sk")
+        keep = np.isin(sr_reason, wanted)
+        if sr_reason_ok is not None:
+            keep &= sr_reason_ok
+        # the left join's NULL-extended rows fail sr_reason_sk = r_reason_sk,
+        # so the result is the matched pairs: per (item, ticket) key of the
+        # kept returns, their number and their summed return quantity
+        item_mul = int(self.col("store_sales", "ss_item_sk").max()) + 1
+        rkey = (self.col("store_returns", "sr_ticket_number")[keep] *
+                item_mul + self.col("store_returns", "sr_item_sk")[keep])
+        ukey, inv = np.unique(rkey, return_inverse=True)
+        rcnt = np.bincount(inv, minlength=len(ukey))
+        rqty = np.zeros(len(ukey), np.int64)
+        np.add.at(rqty, inv, self.col("store_returns",
+                                      "sr_return_quantity")[keep])
+        skey = (self.col("store_sales", "ss_ticket_number") * item_mul +
+                self.col("store_sales", "ss_item_sk"))
+        pos = np.clip(np.searchsorted(ukey, skey), 0, max(len(ukey) - 1, 0))
+        hit = np.nonzero(ukey[pos] == skey)[0] if len(ukey) else \
+            np.zeros(0, np.int64)
+        p = pos[hit]
+        price = self.col("store_sales", "ss_sales_price")[hit]
+        act = (rcnt[p] * self.col("store_sales", "ss_quantity")[hit] -
+               rqty[p]) * price
+        cust, cust_ok = _host(self.cat, "store_sales", "ss_customer_sk")
+        c = np.where(cust_ok[hit], cust[hit], -1).astype(np.int64)
+        uc, cinv = np.unique(c, return_inverse=True)
+        tot = np.zeros(len(uc), np.int64)
+        np.add.at(tot, cinv, act)
+        rows = [(None if k < 0 else int(k), int(v)) for k, v in zip(uc, tot)]
+        rows.sort(key=lambda r: (r[1], r[0] is not None, r[0] or 0))
+        return rows[:LIMIT]
 
 
 # q41's eight (category, colors, units, sizes) branches, each ANDed with
@@ -828,6 +1331,149 @@ Q76_BRANCHES = (
     ("catalog", "cs_ship_addr_sk", "catalog_sales", "cs_sold_date_sk",
      "cs_item_sk", "cs_ext_sales_price"),
 )
+class SetopReference:
+    """q2, q28, q41 and q76 answered from host copies of the generated
+    tables with numpy alone, written from the SQL and independent of the
+    engine; each method returns every result row in the query's order
+    (decimals as scaled int64, averages and ratios as floats computed
+    with the engine's float64 operations in the same order) and asserts
+    that there is one."""
+
+    def __init__(self, cat):
+        self.cat = cat
+        self.sizes = {}     # intermediate sizes the reports reach
+
+    def col(self, table, col):
+        return _host(self.cat, table, col)[0]
+
+    def q28(self) -> list:
+        """avg, count and count(distinct) of ss_list_price over six
+        quantity bands of the sales with a list price, coupon or
+        wholesale cost in range."""
+        q = self.col("store_sales", "ss_quantity")
+        price = self.col("store_sales", "ss_list_price")
+        coupon = self.col("store_sales", "ss_coupon_amt")
+        cost = self.col("store_sales", "ss_wholesale_cost")
+        # cents: list 180..190, coupon 3109..4109, wholesale 62..82
+        cond = ((price >= 18000) & (price <= 19000)) | \
+            ((coupon >= 310900) & (coupon <= 410900)) | \
+            ((cost >= 6200) & (cost <= 8200))
+        row = []
+        for lo, hi in ((0, 5), (6, 10), (11, 15), (16, 20), (21, 25),
+                       (26, 30)):
+            vals = price[cond & (q >= lo) & (q <= hi)]
+            n = len(vals)
+            assert n > 0, f"q28: band {lo}..{hi} is empty"
+            self.sizes[f"q28 band {lo}..{hi} rows"] = n
+            # the engine's avg: the exact sum in float64, over the count,
+            # over 10^scale
+            row += [float(int(vals.sum())) / n / 100, n,
+                    int((np.bincount(vals) > 0).sum())]
+        return [tuple(row)]
+
+    def q41(self) -> list:
+        """The distinct product names of the items of manufacturers 684
+        to 724 whose manufacturer makes an item of one of eight
+        (category, color, units, size) kinds."""
+        cat, color, units, size, manu, manu_id, name = (
+            self.col("item", c) for c in (
+                "i_category", "i_color", "i_units", "i_size", "i_manufact",
+                "i_manufact_id", "i_product_name"))
+        kind = np.zeros(len(cat), bool)
+        for c, colors, unit, sizes in Q41_BRANCHES:
+            kind |= (cat == c) & np.isin(color, colors) & \
+                np.isin(units, unit) & np.isin(size, sizes)
+        makers = np.unique(manu[kind])
+        sel = (manu_id >= 684) & (manu_id <= 724) & np.isin(manu, makers)
+        self.sizes.update({"q41 items of a kind": int(kind.sum()),
+                           "q41 items selected": int(sel.sum())})
+        out = [(str(n),) for n in sorted(set(name[sel].tolist()))]
+        assert out, "q41: no item qualifies"
+        return out
+
+    def q76(self) -> list:
+        """Count and sum of the extended price of each channel's sales
+        with a NULL key, by year, quarter and category.  The catalog
+        branch's key is never NULL in the model: its groups must be
+        absent, which the data, not the reference, decides."""
+        year = self.col("date_dim", "d_year")
+        qoy = self.col("date_dim", "d_qoy")
+        cat = self.col("item", "i_category")
+        out = []
+        for channel, key, table, date, item, price in Q76_BRANCHES:
+            _, kvalid = _host(self.cat, table, key)
+            dsk, dvalid = _host(self.cat, table, date)
+            d = _dense_index(self.col("date_dim", "d_date_sk"), dsk, dvalid)
+            rows = np.flatnonzero((d >= 0) & (
+                ~kvalid if kvalid is not None else False))
+            self.sizes[f"q76 {channel} rows"] = len(rows)
+            if channel == "catalog":
+                assert len(rows) == 0, "q76: catalog rows with a NULL key"
+            if not len(rows):
+                continue
+            d = d[rows]
+            i = _dense_index(self.col("item", "i_item_sk"),
+                             self.col(table, item)[rows], None)
+            # groups of (year, quarter, category), year and quarter
+            # ascending; categories as strings, sorted below
+            cat_codes, cat_of = np.unique(cat[i], return_inverse=True)
+            comp = (year[d].astype(np.int64) * 5 + qoy[d]) * \
+                len(cat_codes) + cat_of.reshape(-1)
+            uniq, inv = np.unique(comp, return_inverse=True)
+            inv = inv.reshape(-1)
+            sums = _exact_sums(inv, self.col(table, price)[rows], len(uniq))
+            cnts = np.bincount(inv, minlength=len(uniq))
+            for u, c, t in zip(uniq.tolist(), cnts.tolist(), sums.tolist()):
+                yq, k = divmod(u, len(cat_codes))
+                out.append((channel, key, yq // 5, yq % 5,
+                            str(cat_codes[k]), c, t))
+        assert out, "q76: no sales with a NULL key"
+        return sorted(out, key=lambda r: r[:5])
+
+    def q2(self) -> list:
+        """Week-over-year ratios of web and catalog sales by day of week:
+        each week of 2001 against the week 53 weeks later, once for each
+        pair of its days in 2001 and the other week's days in 2002 (the
+        joins to date_dim repeat each week by its days in the year)."""
+        week = self.col("date_dim", "d_week_seq").astype(np.int64)
+        year = self.col("date_dim", "d_year")
+        dow = np.array([DAYS.index(x)
+                        for x in self.col("date_dim", "d_day_name")])
+        n_slot = (int(week.max()) + 1) * 7
+        keys, prices = [], []
+        for table, date, price in (
+                ("web_sales", "ws_sold_date_sk", "ws_ext_sales_price"),
+                ("catalog_sales", "cs_sold_date_sk", "cs_ext_sales_price")):
+            dsk, dvalid = _host(self.cat, table, date)
+            d = _dense_index(self.col("date_dim", "d_date_sk"), dsk, dvalid)
+            rows = np.flatnonzero(d >= 0)
+            keys.append(week[d[rows]] * 7 + dow[d[rows]])
+            prices.append(self.col(table, price)[rows])
+        key = np.concatenate(keys)
+        self.sizes["q2 joined rows"] = len(key)
+        sums = _exact_sums(key, np.concatenate(prices), n_slot).reshape(-1, 7)
+        had = (np.bincount(key, minlength=n_slot) > 0).reshape(-1, 7)
+        days_in = {y: np.bincount(week[year == y], minlength=len(sums))
+                   for y in (2001, 2002)}
+        out = []
+        for w in np.flatnonzero(days_in[2001] > 0).tolist():
+            w2 = w + 53
+            if w2 >= len(sums) or not had[w].any() or not had[w2].any() \
+                    or days_in[2002][w2] == 0:
+                continue
+            row = [w]
+            for k in range(7):
+                if not (had[w, k] and had[w2, k]) or sums[w2, k] == 0:
+                    row.append(None)
+                    continue
+                # the engine's division of two decimals and its round
+                x = (np.float64(sums[w, k]) / 100.0) / \
+                    (np.float64(sums[w2, k]) / 100.0)
+                row.append(float(np.floor(np.abs(x) * 100.0 + 0.5) / 100.0
+                                 * np.sign(x)))
+            out += [tuple(row)] * int(days_in[2001][w] * days_in[2002][w2])
+        assert out, "q2: no week pairs"
+        return out
 
 
 def rows_match(want: list, got: list, rel: float = 1e-5) -> bool:
@@ -1409,11 +2055,12 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
                     "07291122510", "--streams", "3"], check=True,
                    stdout=subprocess.DEVNULL, timeout=120)
     stream = POWER_DIR / "query_0.sql"
-    parts = gen_sql_from_stream(str(stream))
+    whole = gen_sql_from_stream(str(stream))
     want = {n: _plain_sql(s) for n, s in corpus()}
-    if {n: _plain_sql(s) for n, s in parts.items()} != want:
+    if {n: _plain_sql(s) for n, s in whole.items()} != want:
         raise AssertionError("stream 0's parts are not the corpus's "
                              "renderings")
+    parts = power_parts()
     records = POWER_DIR / "compile_records.pkl"
     launches = 0
     for run in (1,):
@@ -1422,7 +2069,8 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
                str(stream), "-", str(out / "time.csv"), "--generate",
                f"{scale:g}", "--generate_seed", str(seed),
                "--json_summary_folder", str(out / "summaries"),
-               "--compile_records", str(records), "--ledger", str(LEDGER)]
+               "--compile_records", str(records), "--ledger", str(LEDGER),
+               "--sub_queries", ",".join(parts)]
         out.mkdir()
         t0 = time.time()
         with open(out / "power.log", "w") as log:
@@ -1468,6 +2116,17 @@ def power_runs(scale: float, seed: int, card: str, corpus_rows: dict
     return launches
 
 
+def power_parts() -> list:
+    """The parts of stream 0 the power phase runs (to pay for
+    the out-of-core phase): every eighth corpus part, and those the
+    throughput and serve phases run, whose compile records they preload.
+    The corpus phase runs all 103 at the same scale."""
+    from ndstpu_torch.queries import corpus
+    names = [n for n, _ in corpus()]
+    return sorted(set(names[::8]) | set(THROUGHPUT_SPINE_PARTS) |
+                  set(SERVE_PARTS))
+
+
 # a replay whose guards fail rediscovers, and the executor says so with a
 # warning, which a report records as a task failure (the JAX engine's too)
 REDISCOVERY = "compiled plan invalidated"
@@ -1480,10 +2139,10 @@ THROUGHPUT_SPINE_PARTS = ("query2", "query5", "query9", "query14_part1",
 
 
 def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
-    """The first throughput test, at full size but over about half the
-    parts (every other corpus part, and those whose spines splice across
-    the streams, ``--sub_queries``; since PR 14, to pay for the
-    out-of-core phase): streams 1 and 2 as two
+    """The first throughput test, at full size but over 17 of the 103
+    parts (those whose spines splice across the streams and the serve
+    phase's, ``--sub_queries``; to pay for the out-of-core
+    phase): streams 1 and 2 as two
     threads over one shared session in this process
     (``scheduler.run_streams_inproc``, what ``python -m
     ndstpu_torch.harness.throughput --mode inproc --concurrent 2`` runs),
@@ -1514,14 +2173,12 @@ def throughput_run(segsum, scale: float, seed: int, card: str) -> tuple:
     from ndstpu_torch.engine.sql import normalize_sql_key
     from ndstpu_torch.harness import scheduler
     from ndstpu_torch.harness.power import gen_sql_from_stream
-    from ndstpu_torch.queries import corpus
     out = POWER_DIR / "throughput"
     out.mkdir()
     streams = ("1", "2")
     whole = {sid: gen_sql_from_stream(str(POWER_DIR / f"query_{sid}.sql"))
              for sid in streams}
-    names = [n for n, _ in corpus()]
-    keep = sorted(set(names[::2]) | set(THROUGHPUT_SPINE_PARTS))
+    keep = sorted(set(THROUGHPUT_SPINE_PARTS) | set(SERVE_PARTS))
     texts = {sid: {n: t for n, t in qd.items() if n in keep}
              for sid, qd in whole.items()}
     cmd = ["python", "-m", "ndstpu_torch.harness.power",
@@ -2449,17 +3106,111 @@ def _dm_log(path: Path) -> dict:
     return {r[1]: float(r[2]) for r in rows[1:]}
 
 
-def maintenance_runs(scale: float, seed: int, card: str) -> None:
+def maintenance_counts(scale: float, seed: int) -> int:
+    """The maintenance functions at ``scale`` on the card, each statement
+    held against an independent count: before each DELETE, a
+    ``count(*)`` of its WHERE over its table, which must be the rows it
+    removes; before each INSERT, a ``count(*)`` of its SELECT, which must
+    be the rows it adds (both eager, through ``Session.sql_script``).  One
+    line a statement; then the device bytes held at the end against the
+    bytes of the tables the catalog and the executor hold, so that no
+    replaced table outlives its last user.  Run in a process of its own
+    (``maintenance_runs``)."""
+    import re
+    from ndstpu_torch import datagen
+    from ndstpu_torch.engine.session import Session
+    from ndstpu_torch.harness import maintenance as dm
+    sess = Session(datagen.generate(scale, seed, "cuda"), device="cuda")
+    dm.register_refresh(sess, datagen.generate_refresh(scale, 1, seed,
+                                                       "cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    delete = re.compile(r"^delete\s+from\s+(\w+)\s+where\s+(.*)$",
+                        re.I | re.S)
+    insert = re.compile(r"^insert\s+into\s+(\w+)\s+(select\s.*)$",
+                        re.I | re.S)
+    bad = []
+    for fn, stmts in dm.get_maintenance_queries(sess, dm.DM_FUNCS).items():
+        for i, text in enumerate(stmts):
+            m_del, m_ins = delete.match(text), insert.match(text)
+            want = table = None
+            t1 = time.time()
+            if m_del:
+                table = m_del.group(1)
+                want = sess.sql_script(
+                    f"select count(*) c from {table} where "
+                    f"{m_del.group(2)}")[0].to_rows()[0][0]
+            elif m_ins:
+                table = m_ins.group(1)
+                want = sess.sql_script(
+                    f"select count(*) c from ({m_ins.group(2)}) q"
+                )[0].to_rows()[0][0]
+            count_s = time.time() - t1
+            before = sess.catalog.get(table).num_rows if table else None
+            t1 = time.time()
+            try:
+                sess.sql(text)
+            except Exception as e:  # noqa: BLE001 — recorded, as a report
+                say("maintenance statement", function=fn, statement=i,
+                    error=f"{type(e).__name__}: {e}")
+                break       # a function stops at its first failure
+            torch.cuda.synchronize()
+            run_s = time.time() - t1
+            if table is None:
+                say("maintenance statement", function=fn, statement=i,
+                    kind=text.split()[0].lower(), seconds=run_s)
+                continue
+            after = sess.catalog.get(table).num_rows
+            got = before - after if m_del else after - before
+            say("maintenance statement", function=fn, statement=i,
+                kind="delete" if m_del else "insert", table=table,
+                rows=got, count=want, rows_before=before,
+                rows_after=after, seconds=run_s, count_seconds=count_s)
+            if got != want:
+                bad.append((fn, i))
+    gc.collect()
+    live = set()
+    live_bytes = 0
+
+    def hold(t):
+        nonlocal live_bytes
+        if isinstance(t, torch.Tensor) and t.is_cuda and \
+                t.untyped_storage().data_ptr() not in live:
+            live.add(t.untyped_storage().data_ptr())
+            live_bytes += t.untyped_storage().nbytes()
+    for table in sess.catalog.tables.values():
+        for c in table.columns.values():
+            hold(c.data)
+            hold(c.valid)
+    for _v, dt in sess.executor._device_cache.values():
+        hold(dt.alive)
+        for c in dt.columns.values():
+            hold(c._data)
+            hold(c._valid)
+    allocated = torch.cuda.memory_allocated()
+    say("maintenance memory", allocated_bytes=allocated,
+        live_table_bytes=live_bytes, unheld_bytes=allocated - live_bytes,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        rows=dm.fact_rows(sess))
+    if bad:
+        raise AssertionError(f"maintenance: rows changed differ from the "
+                             f"counts at {bad}")
+    if allocated - live_bytes > 1 << 30:
+        raise AssertionError(f"maintenance: {allocated - live_bytes} device "
+                             f"bytes held beyond the live tables")
+    return 0
+
+
+def maintenance_runs(scale: float, seed: int, card: str,
+                     counts_scale: float) -> None:
     """The maintenance command line at ``scale``, in a process of its
     own: ``python -m ndstpu_torch.harness.maintenance - - <log> --generate
     SF --update 1``.  Its time log must have the 11 function rows and
     ``Data Maintenance Time``, its summaries LF_CR, LF_SR and LF_WR
     ``Failed`` and the rest ``Completed``; one line with each function's
     ms and status, the rows each changed and the peak device memory.
-    (Every statement's rows against an independent count, in a process
-    of its own, went in PR 14 to pay for the out-of-core phase; the check
-    at ``CHECK_SCALE`` still holds the seven fact tables after all 11
-    functions equal to the CPU's.)"""
+    Then ``maintenance_counts`` at ``counts_scale`` in another process:
+    every statement's rows against its independent count."""
     import shutil
     from ndstpu_torch.harness import maintenance as dm
     shutil.rmtree(DM_DIR, ignore_errors=True)
@@ -2498,6 +3249,28 @@ def maintenance_runs(scale: float, seed: int, card: str) -> None:
     if status != {fn: "Failed" if fn in DM_FAILING else "Completed"
                   for fn in dm.DM_FUNCS}:
         raise AssertionError(f"maintenance statuses {status}")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         f"chip_smoke.maintenance_counts({counts_scale!r}, {seed!r}))"],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=600)
+    (DM_DIR / "counts.log").write_text(proc.stdout + proc.stderr)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    mem = [ln for ln in lines if ln["phase"] == "maintenance memory"]
+    say("maintenance counts", scale=counts_scale, statements=sum(
+        ln["phase"] == "maintenance statement" for ln in lines),
+        checked=[(ln["function"], ln["statement"], ln["rows"], ln["count"])
+                 for ln in lines if "count" in ln],
+        errors=[(ln["function"], ln["error"]) for ln in lines
+                if "error" in ln],
+        memory=mem[0] if mem else None, wall_s=time.time() - t0,
+        card=card)
+    if proc.returncode != 0:
+        raise AssertionError(f"maintenance counts exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+
 
 
 # -- out-of-core execution (phase 16 and the check's chunked runs) ----------
@@ -2701,6 +3474,10 @@ def ooc_phase(segsum, scale: float, seed: int, card: str) -> int:
         for label in ("auto", "half"):
             if label == "auto":
                 chunk = "auto"
+            elif not auto_chunks:
+                # the auto run streamed no chunk (a window's spine runs
+                # resident): half the chunk rows would run it alike
+                break
             else:
                 # half the chunk rows the auto run used for its largest
                 # streamed fact: its last pass over each (after any
@@ -2712,6 +3489,7 @@ def ooc_phase(segsum, scale: float, seed: int, card: str) -> int:
                 chunk = max(max(used.values(), default=2) // 2, 1)
             got, exe, moved, ms, peak = chunked_run(cat, sql, chunk)
             runs[label] = (got, exe)
+            auto_chunks = moved.get("engine.stream.chunks", 0)
             fell = _fell(moved)
             if exe is None or fell:
                 bad.append(f"{name} ({label}) fell through: {fell}")
@@ -2732,8 +3510,9 @@ def ooc_phase(segsum, scale: float, seed: int, card: str) -> int:
                 peak_device_bytes=peak, host_fact_bytes=host_bytes,
                 rss_bytes=_rss(), fell_through=fell, card=card)
             del exe
-        diff = results_differ(runs["auto"][0], runs["half"][0])
-        if diff is not None:
+        diff = "half" in runs and results_differ(runs["auto"][0],
+                                                 runs["half"][0])
+        if diff:
             bad.append(f"{name}: half the chunk rows differ: {diff}")
         del runs
         gc.collect()
@@ -2896,15 +3675,42 @@ def main() -> int:
         raise AssertionError(f"the bench did not launch both kernels: "
                              f"{bench_launches}")
 
-    # main paths 3-5, the store-channel reports, window and rollup
-    # reports and set operations (q9, q43, q88, q93; q36, q47, q67, q89,
-    # q98; q2, q28, q41, q76: all corpus parts, run in the corpus check
-    # and the corpus phase), went in PR 14 to pay for the out-of-core
-    # phase; their kernel checks stay.  Decimal descales on the card must
-    # be the CPU's IEEE quotients, which ranks and ties compare
+    # main path 3: the store-channel reports
+    t0 = time.time()
+    sref = StoreReference(cat)
+    want = {q: getattr(sref, q)() for q in STORE_QUERIES}
+    say("store reference", seconds=time.time() - t0)
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
+    for q, sql in STORE_QUERIES.items():
+        got, rec = run_query(q, sql, nulls=True)
+        if not rows_match(want[q], got):
+            raise AssertionError(f"{q}: {got[:3]} vs reference "
+                                 f"{want[q][:3]} ({len(got)} vs "
+                                 f"{len(want[q])} rows)")
+        say("store slice", **rec)
+    # q88 on a store that exists: the cross join over non-zero counts
+    name = next(str(n) for n in sref.col("store", "s_store_name")
+                if "'" not in n)
+    sql = STORE_QUERIES["q88"].replace("'ese'", f"'{name}'")
+    want88 = sref.q88(name)
+    got, rec = run_query("q88 named", sql, nulls=True)
+    if not rows_match(want88, got) or min(want88[0]) == 0:
+        raise AssertionError(f"q88 on store {name!r}: {got} vs reference "
+                             f"{want88}")
+    say("store slice", store_name=name, counts=list(got[0]), **rec)
+    store_launches = (segsum.LAUNCHES, segsum.REPLAY_LAUNCHES)
+
+    # main path 4: the store window and rollup reports.  Their ratios and
+    # averages descale decimals to float64, and the reference ranks and
+    # ties the true quotients: the engine's must be the same on the card
     descale_check(args.seed)
-    # q36's finest-grain sums, each bit-exact against the plain version
-    # on its captured inputs
+    t0 = time.time()
+    want = {q: getattr(sref, q)() for q in WINDOW_QUERIES}
+    say("window reference", seconds=time.time() - t0,
+        rows={q: len(w) for q, w in want.items()}, sizes=sref.sizes)
+    del sref
+    # the path's kernel at the path's own shape: q36's finest-grain sums,
+    # each bit-exact against the plain version on its captured inputs
     captured = segsum_calls(segsum, sess, WINDOW_QUERIES["q36"])[0]
     forget(sess, WINDOW_QUERIES["q36"])
     if not captured:
@@ -2915,8 +3721,25 @@ def main() -> int:
         k["shapes"].append(rec)
         k["max_abs_err"] = max(k["max_abs_err"], rec["max_abs_err"])
     del captured, vals, gid, mask
-    # every segment sum of one run of each set-operation report
-    # bit-exact, the first of each query timed as a shape
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
+    for q, sql in WINDOW_QUERIES.items():
+        got, rec = run_query(q, sql, nulls=True)
+        compare(want[q], got, WINDOW_ORDER[q],
+                limit=None if q == "q98" else LIMIT)
+        say("window slice", **rec)
+        if q == "q36" and rec["kernel_launches"] == 0:
+            raise AssertionError("q36's rollup launched no segsum_decimal")
+    window_launches = (segsum.LAUNCHES, segsum.REPLAY_LAUNCHES)
+
+    # main path 5: set operations, DISTINCT and distinct aggregates
+    t0 = time.time()
+    xref = SetopReference(cat)
+    want = {q: getattr(xref, q)() for q in SETOP_QUERIES}
+    say("setop reference", seconds=time.time() - t0,
+        rows={q: len(w) for q, w in want.items()}, sizes=xref.sizes)
+    del xref
+    # the path's kernel at its own inputs: every segment sum of one run of
+    # each query bit-exact, the first of each query timed as a shape
     routed_calls = {}
     for q, sql in SETOP_QUERIES.items():
         captured, n_calls, err, _ = segsum_calls(segsum, sess, sql, keep=1)
@@ -2928,9 +3751,31 @@ def main() -> int:
             for c in captured)
         del captured
     say("setop segment sums", calls=routed_calls)
+    segsum.LAUNCHES = segsum.REPLAY_LAUNCHES = segsum.LAUNCHES_F32 = 0
+    setop_orders = {"q28": None, "q41": lambda r: r[:1],
+                    "q76": lambda r: r[:5], "q2": lambda r: r[:1]}
+    for q, sql in SETOP_QUERIES.items():
+        got, rec = run_query(q, sql, nulls=True)
+        if setop_orders[q] is None:
+            if not rows_match(want[q], got):
+                raise AssertionError(f"{q}: {got} vs reference {want[q]}")
+        else:
+            compare(want[q], got, setop_orders[q],
+                    limit=None if q == "q2" else LIMIT)
+        say("setop slice", **rec)
+    # q76 without its LIMIT: every group of the union, the web branch's
+    # included (the store branch's groups fill the first 100 rows)
+    got, rec = run_query("q76 whole", SETOP_QUERIES["q76"].replace(
+        "limit 100", ""), nulls=True)
+    compare(want["q76"], got, setop_orders["q76"], limit=None)
+    say("setop slice", channels=sorted({r[0] for r in got}), **rec)
+    setop_launches = (segsum.LAUNCHES, segsum.REPLAY_LAUNCHES)
+    if any(routed_calls.values()) and not sum(setop_launches):
+        raise AssertionError("the path routes sums to segsum_decimal but "
+                             "launched it no time")
 
     # the whole warehouse: free the store channel's first
-    del cat, sess, exe, gate, spy_gate, run_query, got
+    del cat, sess, exe, gate, spy_gate, run_query, got, want
     gc.collect()
     torch.cuda.empty_cache()
     say("freed", device_bytes=torch.cuda.memory_allocated())
@@ -3001,7 +3846,7 @@ def main() -> int:
     k["max_abs_err"] = max(k["max_abs_err"], dm_err)
     gc.collect()
     torch.cuda.empty_cache()
-    maintenance_runs(args.corpus_scale, args.seed, card)
+    maintenance_runs(args.corpus_scale, args.seed, card, args.check_scale)
 
     # main path 11: out-of-core execution past the scale the warehouse
     # fits the card at, its facts streamed from host memory
@@ -3017,11 +3862,15 @@ def main() -> int:
         "replaces": "ndstpu/ops/segsum.py:141",
         "tpu_kernel": "ndstpu/ops/segsum.py::_limb_kernel",
         "launches": sum(family_launches) + bench_launches[0] +
-        ooc_launches +
+        sum(store_launches) + sum(window_launches) + sum(setop_launches) +
         sum(corpus_launches) + power_launches + sum(throughput_launches) +
-        process_launches + serve_launches + sum(dm_launches),
+        process_launches + serve_launches + sum(dm_launches) + ooc_launches,
         "launches_by_path": {"q3 family": sum(family_launches),
                              "bench": bench_launches[0],
+                             "store slice": sum(store_launches),
+                             "store window reports": sum(window_launches),
+                             "set operations and distinct":
+                             sum(setop_launches),
                              "corpus": sum(corpus_launches),
                              "power run": power_launches,
                              "throughput": sum(throughput_launches),
@@ -3031,6 +3880,9 @@ def main() -> int:
                              "out-of-core": ooc_launches},
         "replay_launches_by_path": {
             "q3 family": family_launches[1], "bench": 0,
+            "store slice": store_launches[1],
+            "store window reports": window_launches[1],
+            "set operations and distinct": setop_launches[1],
             "corpus": corpus_launches[1],
             "throughput": throughput_launches[1],
             "maintenance check": dm_launches[1]},

@@ -5,14 +5,9 @@ collectives inside ``shard_map`` programs.  The port's mesh is a rank
 count (:mod:`.mesh`): the world size of an initialized
 ``torch.distributed`` group, or 1.  Over one rank the distributed plan
 executor (:mod:`.dplan`) is the single-card out-of-core path: it streams a
-fact from host memory through the card in chunks.  The exchanges of
-:mod:`.exchange` run at world size 1 and refuse a larger one; the
-multi-rank path over NCCL is a later slice.
+fact from host memory through the card in chunks.  It refuses a larger
+mesh; the multi-rank path and its collectives over NCCL are a later
+slice.
 """
 
 from ndstpu_torch.parallel.mesh import default_mesh, make_mesh  # noqa: F401
-from ndstpu_torch.parallel.exchange import (  # noqa: F401
-    broadcast_gather,
-    hash_repartition,
-    sharded_segment_sum,
-)

@@ -20,8 +20,8 @@ world size 1 (:mod:`ndstpu_torch.parallel.mesh`):
   ranks, so where the JAX package runs an exchange (a shuffle's probe
   rows, a DISTINCT's groups, a window's partitions) the port reads the
   rows in place: the exchange there would only copy the live rows, in
-  their order, into a larger table (:mod:`.exchange` holds the
-  exchanges, at world size 1, for the multi-rank slice).  Grouped sums are torch segment
+  their order, into a larger table (the collectives come with the
+  multi-rank path).  Grouped sums are torch segment
   sums, as the JAX package's are ``jax.ops.segment_sum`` (not its Pallas
   kernel); float sums go through :mod:`ndstpu_torch.engine.fp64`.
 * **Existence-join build sides containing a fact** reduce to their
@@ -352,8 +352,7 @@ class DistributedPlanExecutor:
                  chunk_rows=None,
                  prefetch_depth: Optional[int] = None,
                  cost_advisor="auto", device="cpu",
-                 host_exec: Optional[_HostExec] = None,
-                 ragged_joins: Optional[bool] = None):
+                 host_exec: Optional[_HostExec] = None):
         self.catalog = catalog
         self.mesh = mesh
         self.n_dev = int(mesh.n_dev)
@@ -362,11 +361,6 @@ class DistributedPlanExecutor:
                 f"a mesh of {self.n_dev} ranks: the multi-rank executor is "
                 f"not ported (world size 1 only)", code="NDS301")
         self.device = torch.device(device)
-        # joins by whole key runs where the JAX package refuses one
-        # (_ragged_join): None = when the spine streams a fact held in
-        # host memory (out of core, where falling through to the
-        # resident path cannot hold the fact); else as given
-        self.ragged_joins = ragged_joins
         self.threshold = shard_threshold_rows
         self.broadcast_limit = broadcast_limit_rows
         # exchange-placement advisor (analysis/cost.py): "auto" resolves
@@ -429,7 +423,7 @@ class DistributedPlanExecutor:
             dev_cache=self.dev_cache, chunk_rows=self.chunk_rows,
             prefetch_depth=self.prefetch_depth,
             cost_advisor=self.cost_advisor, device=self.device,
-            host_exec=self.np_exec, ragged_joins=self.ragged_joins)
+            host_exec=self.np_exec)
 
     # -- public --------------------------------------------------------------
 
@@ -1338,13 +1332,12 @@ class DistributedPlanExecutor:
 
     def _refuse_ragged(self, kind: str, dup_max: int, why) -> None:
         """Raise the JAX package's refusal of a join by whole key runs,
-        unless this spine may take one (``ragged_joins``)."""
-        allowed = self.ragged_joins
-        if allowed is None:
-            on_host = getattr(self.catalog, "on_host", None)
-            allowed = on_host is not None and on_host(
-                self.fact_target.table, self.device)
-        if allowed:
+        unless the spine streams a fact held in host memory: out of core,
+        falling through to the resident path cannot hold the fact, so the
+        spine joins by whole key runs (``_ragged_join``) instead."""
+        on_host = getattr(self.catalog, "on_host", None)
+        if on_host is not None and on_host(self.fact_target.table,
+                                           self.device):
             return
         if why == "shuffle":
             raise DistUnsupported(

@@ -1,31 +1,19 @@
-"""Shuffle-exchange primitives (``ndstpu.parallel.exchange``).
+"""Shuffle-exchange helpers (``ndstpu.parallel.exchange``).
 
 The JAX package moves rows between devices with three collectives inside
 ``shard_map``: a hash repartition (``all_to_all``), a broadcast of a
 join's build side (``all_gather``) and a partial-aggregate combine
-(``psum``).  The port runs them at world size 1, where each is a local
-operation with the JAX version's exact result on a one-device mesh: the
-same receive-bucket capacity, the same row order and the same count of
-dropped rows, which the distributed executor's slack doubling reads.  A
-world size above 1 raises :class:`DistUnsupported`; the NCCL collectives
-are a later slice.
-
-torch has no unsigned 64-bit arithmetic, and ``>>`` on ``int64`` is an
-arithmetic shift, so :func:`_mix64` keeps the splitmix64 finalizer's
-``uint64`` bits in an ``int64`` tensor: shifts are masked to be logical
-and multiplies wrap, bit-identical to the JAX package's ``_mix64`` (rows
-must land on the same shard in both packages).
+(``psum``).  On one rank no row moves, so the port's distributed
+executor reads its rows in place and calls none of them; the collectives
+come with the multi-rank path over NCCL.  What the one-rank path needs
+is here: the refusal it raises and the host-side splitmix64 that assigns
+a shuffle join's build rows to partitions, bit-identical to the JAX
+package's, so that rows land on the same shard in both packages.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
-
 import numpy as np
-import torch
-
-from ndstpu_torch import obs
-from ndstpu_torch.parallel.mesh import SHARD_AXIS, world_size
 
 
 class DistUnsupported(Exception):
@@ -40,139 +28,12 @@ class DistUnsupported(Exception):
         self.code = code
 
 
-def _one_rank(n_dev: int, what: str) -> None:
-    if n_dev != 1:
-        raise DistUnsupported(
-            f"{what} across {n_dev} ranks: the multi-rank exchange is not "
-            f"ported (world size 1 only)", code="NDS301")
-
-
-def _note_collective(kind: str, bytes_est: int) -> None:
-    """Record one collective and its estimated wire bytes (all ranks
-    together), under the JAX package's counter names.  The JAX package
-    counts at trace time, once a compiled program; the port counts once a
-    call."""
-    from ndstpu_torch import faults
-    faults.check("exchange.collective", key=kind)
-    obs.inc("exchange.collective.calls")
-    obs.inc(f"exchange.{kind}.calls")
-    obs.inc("exchange.shuffle_bytes", int(bytes_est))
-
-
-_M1 = 0xBF58476D1CE4E5B9 - (1 << 64)   # the constants as int64 bits
-_M2 = 0x94D049BB133111EB - (1 << 64)
-
-
-def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Logical right shift of the uint64 bits held in int64 ``x``."""
-    return (x >> k) & ((1 << (64 - k)) - 1)
-
-
-def _mix64(x: torch.Tensor) -> torch.Tensor:
-    """splitmix64 finalizer over the uint64 bits of ``x`` (an integer
-    tensor, reinterpreted as uint64 as ``astype(uint64)`` does); returns
-    the hash's bits as int64."""
-    x = x.to(torch.int64)
-    x = (x ^ _shr(x, 30)) * _M1
-    x = (x ^ _shr(x, 27)) * _M2
-    return x ^ _shr(x, 31)
-
-
-def _umod(h: torch.Tensor, n: int) -> torch.Tensor:
-    """The uint64 value of the bits ``h`` modulo ``n`` (int64 result)."""
-    r = torch.remainder(h, n)
-    wrap = (1 << 64) % n
-    return torch.where(h < 0, torch.remainder(r + wrap, n), r)
-
-
 def mix64_np(x):
-    """Host-side splitmix64, bit-identical to :func:`_mix64` (numpy).
-    Used to pre-partition a join build side with the same bucket
-    assignment the probe shuffle will compute."""
+    """Host-side splitmix64 finalizer (numpy), bit-identical to the JAX
+    package's ``_mix64``.  Used to pre-partition a join build side with
+    the same bucket assignment the probe shuffle computes."""
     x = x.astype(np.uint64)
     with np.errstate(over="ignore"):
         x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
         x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
     return x ^ (x >> np.uint64(31))
-
-
-def hash_repartition(cols: Dict[str, torch.Tensor], key: torch.Tensor,
-                     alive: torch.Tensor, n_dev: int, bucket_cap: int,
-                     axis: str = SHARD_AXIS
-                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
-                                torch.Tensor]:
-    """Shuffle local rows so equal keys land on the same rank: bucket
-    rows by ``hash(key) % n_dev`` into ``[n_dev, bucket_cap]`` and
-    exchange the buckets.  Returns (received columns of ``n_dev *
-    bucket_cap`` rows, their alive mask, rows dropped for overflowing
-    ``bucket_cap``)."""
-    dest = _umod(_mix64(key), n_dev).to(torch.int32)
-    return repartition_by_dest(cols, dest, alive, n_dev, bucket_cap, axis)
-
-
-def repartition_by_dest(cols: Dict[str, torch.Tensor], dest: torch.Tensor,
-                        alive: torch.Tensor, n_dev: int, bucket_cap: int,
-                        axis: str = SHARD_AXIS
-                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
-                                   torch.Tensor]:
-    """Shuffle local rows to explicit destination ranks (``dest``,
-    meaningful where ``alive``; dead rows are dropped in transit).  At
-    world size 1 every live row stays: the live rows, in their order,
-    fill the front of one bucket of ``bucket_cap`` slots, and rows past
-    the bucket are dropped and counted, as in the JAX package."""
-    _one_rank(n_dev, "repartition")
-    n = dest.shape[0]
-    dev = dest.device
-    dest = torch.where(alive, dest.to(torch.int64),
-                       torch.full_like(dest, n_dev, dtype=torch.int64))
-    order = torch.sort(dest, stable=True)[1]
-    dsort = dest[order]
-    first = torch.searchsorted(dsort, torch.arange(n_dev + 1, device=dev))
-    within = torch.arange(n, device=dev) - first[
-        torch.clamp(dsort, 0, n_dev)]
-    ok = (within < bucket_cap) & (dsort < n_dev)
-    # dropped/overflow rows land in a dummy row that is sliced off
-    row = torch.where(ok, torch.clamp(dsort, 0, n_dev - 1),
-                      torch.full_like(dsort, n_dev))
-    slot = torch.clamp(within, 0, bucket_cap - 1)
-    flat = row * bucket_cap + slot
-
-    def scatter(arr: torch.Tensor) -> torch.Tensor:
-        """``arr`` (in sorted order) into the send buffer."""
-        buf = torch.zeros((n_dev + 1) * bucket_cap, dtype=arr.dtype,
-                          device=dev)
-        buf[flat] = arr
-        return buf[:n_dev * bucket_cap]
-
-    _note_collective(
-        "all_to_all",
-        n_dev * n_dev * bucket_cap *
-        (sum(a.element_size() for a in cols.values()) + 1))
-    alive_out = scatter(ok)
-    n_dropped = torch.sum((within >= bucket_cap) & (dsort < n_dev))
-    out_cols = {name: scatter(arr[order]) for name, arr in cols.items()}
-    return out_cols, alive_out, n_dropped
-
-
-def broadcast_gather(arr: torch.Tensor, axis: str = SHARD_AXIS
-                     ) -> torch.Tensor:
-    """Every rank's rows on every rank (a broadcast join's build side)."""
-    n_dev = world_size()
-    _one_rank(n_dev, "broadcast")
-    _note_collective("all_gather",
-                     arr.numel() * arr.element_size() * n_dev * (n_dev - 1))
-    return arr
-
-
-def sharded_segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
-                        num_segments: int, axis: str = SHARD_AXIS
-                        ) -> torch.Tensor:
-    """Partial aggregation: a local segment sum, then the sum across
-    ranks."""
-    n_dev = world_size()
-    _one_rank(n_dev, "psum")
-    _note_collective("psum",
-                     num_segments * values.element_size() * n_dev)
-    out = torch.zeros(num_segments, dtype=values.dtype,
-                      device=values.device)
-    return out.index_add_(0, segment_ids.to(torch.int64), values)

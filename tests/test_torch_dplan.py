@@ -29,6 +29,7 @@ from ndstpu.parallel import mesh as jax_mesh
 from ndstpu_torch import datagen, obs
 from ndstpu_torch.engine.plan import fixes_order
 from ndstpu_torch.engine.session import Session
+from ndstpu_torch.io.catalog import Catalog
 from ndstpu_torch.parallel import dplan, exchange, mesh as pmesh
 from ndstpu_torch.queries import corpus
 from test_jaxexec import assert_tables_match
@@ -172,30 +173,25 @@ def test_mix64_bit_identical_to_jax():
                      endpoint=True)
     x[:4] = [0, 2 ** 63 - 1, 2 ** 63, 2 ** 64 - 1]
     assert (x >= np.uint64(2 ** 63)).sum() > 1000
-    want = np.asarray(jax_exchange._mix64(jnp.asarray(x)))
-    got = exchange._mix64(torch.from_numpy(x.view(np.int64)))
-    assert np.array_equal(got.numpy().view(np.uint64), want)
     assert np.array_equal(exchange.mix64_np(x), jax_exchange.mix64_np(x))
-    for n in (1, 3, 8):
-        assert np.array_equal(
-            exchange._umod(got, n).numpy(),
-            (want % np.uint64(n)).astype(np.int64))
+    # and to the device hash the JAX package's probe shuffle computes
+    assert np.array_equal(exchange.mix64_np(x),
+                          np.asarray(jax_exchange._mix64(jnp.asarray(x))))
+    # the signed keys a build side holds hash as their uint64 bits
+    k = x.view(np.int64)
+    assert np.array_equal(exchange.mix64_np(k), jax_exchange.mix64_np(k))
 
 
-def test_world_size_one_only():
+def test_world_size_one_only(sessions):
+    cat, _jc, _js, _ts = sessions
     assert pmesh.make_mesh(1).n_dev == 1
     with pytest.raises(ValueError):
         pmesh.make_mesh(2)
-    alive = torch.tensor([True, False, True])
-    out, ok, dropped = exchange.repartition_by_dest(
-        {"x": torch.tensor([5, 6, 7])}, torch.zeros(3, dtype=torch.int64),
-        alive, 1, 2)
-    # the live rows fill the front of one bucket; the third is dropped
-    assert out["x"].tolist() == [5, 7] and ok.tolist() == [True, True]
-    assert int(dropped) == 0
+
+    class TwoRanks:
+        n_dev = 2
     with pytest.raises(exchange.DistUnsupported) as e:
-        exchange.repartition_by_dest({}, torch.zeros(3, dtype=torch.int64),
-                                     alive, 2, 4)
+        dplan.DistributedPlanExecutor(cat, TwoRanks(), device="cpu")
     assert e.value.code == "NDS301"
 
 
@@ -224,48 +220,6 @@ def test_strict_mode_raises_a_defect(sessions, monkeypatch):
     assert os.environ.get("NDSTPU_SPMD_STRICT") is None
 
 
-def test_exchanges_match_jax_on_one_device():
-    """hash_repartition (its receive bucket, alive mask and drop count,
-    with a bucket too small for the live rows), broadcast_gather and
-    sharded_segment_sum at world size 1 against the JAX package's on a
-    one-device mesh."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-    rng = np.random.default_rng(14)
-    n, cap = 40, 24
-    key = rng.integers(-2 ** 40, 2 ** 40, n)
-    a = rng.integers(0, 1000, n)
-    alive = rng.random(n) < 0.8
-    seg = rng.integers(0, 7, n)
-    mesh = jax_mesh.make_mesh(1)
-    ax = jax_mesh.SHARD_AXIS
-
-    def body(k, x, al, s):
-        cols, got_alive, dropped = jax_exchange.hash_repartition(
-            {"x": x}, k, al, 1, cap)
-        return (cols["x"], got_alive, dropped,
-                jax_exchange.broadcast_gather(x),
-                jax_exchange.sharded_segment_sum(x, s, 7))
-
-    fn = jax.jit(jax_mesh.shard_map(
-        body, mesh, in_specs=(P(ax),) * 4,
-        out_specs=(P(ax), P(ax), P(), P(), P())))
-    want = [np.asarray(w) for w in fn(jnp.asarray(key), jnp.asarray(a),
-                                      jnp.asarray(alive),
-                                      jnp.asarray(seg, dtype=np.int32))]
-    cols, got_alive, dropped = exchange.hash_repartition(
-        {"x": torch.from_numpy(a)}, torch.from_numpy(key),
-        torch.from_numpy(alive), 1, cap)
-    assert np.array_equal(got_alive.numpy(), want[1])
-    assert np.array_equal(cols["x"].numpy()[want[1]], want[0][want[1]])
-    assert int(dropped) == int(want[2]) == max(int(alive.sum()) - cap, 0)
-    assert np.array_equal(
-        exchange.broadcast_gather(torch.from_numpy(a)).numpy(), want[3])
-    assert np.array_equal(exchange.sharded_segment_sum(
-        torch.from_numpy(a), torch.from_numpy(seg), 7).numpy(), want[4])
-
-
 RAGGED = {
     "inner": ("select i_category, count(*) as n, sum(cs_quantity) as q "
               "from store_sales, catalog_sales, item "
@@ -280,6 +234,15 @@ RAGGED = {
 }
 
 
+class HostFacts(Catalog):
+    """The catalog an out-of-core session on a card sees: the fact
+    tables held in host memory, off the executor's device (the
+    dimensions on it)."""
+
+    def on_host(self, name, device):
+        return name in datagen.FACTS
+
+
 @pytest.mark.parametrize("limit", [8_000_000, 50], ids=["broadcast",
                                                         "shuffle"])
 @pytest.mark.parametrize("case", sorted(RAGGED))
@@ -287,24 +250,28 @@ def test_joins_by_whole_key_runs(sessions, case, limit):
     """Where the JAX package's executor refuses a join for its key runs
     (longer than its 8-copy tiling or 32-deep residual probe, a left
     join's duplicates, an expansion on a shuffle build side) it raises
-    in the port too, unless the executor takes joins by whole runs (as
-    it does for a fact streamed from host memory): then the answer
-    equals the resident one."""
+    in the port too over a resident catalog.  Over one whose facts are
+    held in host memory, off the executor's device (out of core, where
+    the resident path could not hold them), it joins by whole runs, and
+    the answer equals the resident one."""
     from ndstpu_torch.engine.torchexec import results_differ
     cat, _jc, _js, ts = sessions
     sql = RAGGED[case]
     plan, _ = ts.plan(sql)
+    host = HostFacts()
+    for name in cat.tables:
+        host.register(name, cat.get(name))
 
-    def run(ragged):
+    def run(catalog):
         return dplan.DistributedPlanExecutor(
-            cat, pmesh.make_mesh(1), shard_threshold_rows=500,
+            catalog, pmesh.make_mesh(1), shard_threshold_rows=500,
             broadcast_limit_rows=limit, chunk_rows=1000, device="cpu",
-            cost_advisor=None, ragged_joins=ragged)
+            cost_advisor=None)
 
-    strict = run(False)
+    strict = run(cat)
     with pytest.raises(dplan.DistUnsupported):
         strict.execute_plan(plan)
-    exe = run(True)
+    exe = run(host)
     got = exe.execute_plan(plan)
     assert any(j.ragged for j in exe.joins.values()) or exe.build_reduced
     assert exe._chunk_info[0]

@@ -25,6 +25,7 @@ from ndstpu_torch.engine.plan import fixes_order
 from ndstpu_torch.engine.session import Session
 from ndstpu_torch.engine.torchexec import results_differ
 from ndstpu_torch.queries import corpus
+from test_jaxexec import assert_tables_match
 
 SCALE = 0.01
 THRESHOLD = 500
@@ -108,5 +109,6 @@ def check_ooc_part(warehouse, name: str, monkeypatch):
     diff = results_differ(want, got)
     assert diff is None, f"{name}: {diff}"
     if fixes_order(plan):
-        assert [tuple(r) for r in got.to_rows()] == [
-            tuple(r) for r in want.to_rows()] or diff is None
+        # the rows in the resident order, row by row (floats within
+        # assert_tables_match's tolerance)
+        assert_tables_match(want, got, ordered=True)
