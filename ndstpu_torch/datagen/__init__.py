@@ -36,7 +36,10 @@ only the store channel was made, in the same order; every column added
 since draws from a stream of its own (ndsgen keeps its "extra columns
 stream" the same way), so the earlier columns keep their values.
 ``tables=`` or ``columns=`` gets a part of the warehouse; each column has
-the same values whatever else was asked for.  :func:`generate_refresh`
+the same values whatever else was asked for.  ``use_decimal=False`` makes
+the warehouse of the reference benchmark's ``--floats`` configuration:
+every DECIMAL column of the schema comes out as FLOAT64, the nearest
+double to each decimal value (:func:`as_doubles`).  :func:`generate_refresh`
 makes the data-maintenance refresh sets
 (:mod:`ndstpu_torch.datagen.refresh`).
 """
@@ -53,7 +56,7 @@ from ndstpu_torch.datagen.model import DISTS, bkey, sizes, stream
 from ndstpu_torch.datagen.refresh import generate_refresh, refresh_sizes
 from ndstpu_torch.engine.columnar import Column, Table
 from ndstpu_torch.io.catalog import Catalog
-from ndstpu_torch.schema import get_schemas
+from ndstpu_torch.schema import FLOAT64, get_schemas
 
 # the store-channel columns the q3 family, the store-channel reports,
 # the window and rollup reports and the set-operation reports read
@@ -124,7 +127,7 @@ def _wanted(tables: Optional[Iterable[str]],
 def generate(scale: float, seed: int, device,
              tables: Optional[Iterable[str]] = None,
              columns: Optional[Mapping[str, Sequence[str]]] = None,
-             host_facts: bool = False) -> Catalog:
+             host_facts: bool = False, use_decimal: bool = True) -> Catalog:
     """A catalog of the warehouse at ``scale``, generated on ``device``
     from ``seed``: every column of every table by default, every column
     of ``tables``, or the columns ``columns`` maps each table to.  With
@@ -132,7 +135,10 @@ def generate(scale: float, seed: int, device,
     ``device`` chunk by chunk as always, and each chunk is copied into
     host memory, where the tables stay (the out-of-core warehouse, which
     the session streams with ``spmd_chunk_rows``); their values are the
-    same.  The dimensions stay on ``device``."""
+    same.  The dimensions stay on ``device``.  With ``use_decimal=False``
+    every DECIMAL column is converted to FLOAT64 where it lies
+    (:func:`as_doubles`), NULLs kept: the warehouse that the JAX
+    package's ``transcode --floats`` reads."""
     device = torch.device(device)
     want = _wanted(tables, columns)
     n = sizes(scale)
@@ -215,9 +221,36 @@ def generate(scale: float, seed: int, device,
     cat = Catalog()
     for table in TABLES:
         if table in want:
-            cat.register(table, Table({c: made[table][c]
-                                       for c in want[table]}))
+            # popped, so that a converted column frees its decimal one
+            have = made.pop(table)
+            cols = {c: have[c] for c in want[table]}
+            del have
+            if not use_decimal:
+                cols = {c: as_doubles(col, f"{table}.{c}")
+                        for c, col in cols.items()}
+            cat.register(table, Table(cols))
     return cat
+
+
+def as_doubles(col: Column, name: str = "") -> Column:
+    """``col`` as FLOAT64 when it is a DECIMAL, else ``col`` itself: each
+    scaled integer ``u`` becomes ``u / 10**scale`` by one IEEE division
+    (never a product with the reciprocal, which can miss the quotient in
+    the last bit), so each value is the double nearest the decimal, as a
+    parse of its text gives.  That holds while ``|u| < 2**53``, where
+    ``u`` is exact as a double; a column outside it raises.  The column
+    stays on its device; invalid rows keep their mask."""
+    if col.ctype.kind != "decimal":
+        return col
+    data = col.data
+    if len(data):
+        top = int(data.abs().max())
+        if top >= 1 << 53:
+            raise ValueError(f"{name}: |{top}| >= 2**53 is not exact as "
+                             f"a double")
+    scale = torch.full((), float(10 ** col.ctype.scale), dtype=torch.float64,
+                       device=data.device)
+    return Column(data.to(torch.float64) / scale, FLOAT64, col.valid)
 
 
 def move(cat: Catalog, device) -> Catalog:
@@ -232,5 +265,6 @@ def move(cat: Catalog, device) -> Catalog:
     return out
 
 
-__all__ = ["COLUMNS", "FACTS", "TABLES", "DISTS", "generate", "generate_refresh",
+__all__ = ["COLUMNS", "FACTS", "TABLES", "DISTS", "as_doubles", "generate",
+           "generate_refresh",
            "move", "refresh_sizes", "sizes", "bkey", "return_parent_rows"]

@@ -51,6 +51,14 @@ executor, counted as ``engine.spmd.unsupported_fallbacks`` and
 other failure is a defect, counted, warned and reported as a task
 failure (``NDSTPU_SPMD_STRICT`` raises it), never silent.  The multi-rank
 ``tpu-spmd`` backend is a later slice.
+
+A watchdog that gives up on a query (the power run's and the server's)
+cannot stop its thread, but can cancel it: :func:`abandonable` runs a
+thread's queries under an event, and once the event is set the query
+raises :class:`QueryAbandoned` at its next cancellation point (before it
+plans, and after the execute fault site, before it discovers or
+replays), so an abandoned thread ends without counting work into the
+process's counters or using the device behind its successor.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ import os
 import sys
 import threading
 import warnings
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -81,6 +90,31 @@ from ndstpu_torch.engine.torchexec import (
     resolve_device,
 )
 from ndstpu_torch.io.catalog import Catalog
+
+
+class QueryAbandoned(RuntimeError):
+    """The query's watchdog gave up on it (:func:`abandonable`)."""
+
+
+_cancel = threading.local()
+
+
+@contextmanager
+def abandonable(event: threading.Event):
+    """Run this thread's queries so that setting ``event`` stops each at
+    its next cancellation point with :class:`QueryAbandoned`."""
+    prev = getattr(_cancel, "event", None)
+    _cancel.event = event
+    try:
+        yield
+    finally:
+        _cancel.event = prev
+
+
+def _cancel_point() -> None:
+    ev = getattr(_cancel, "event", None)
+    if ev is not None and ev.is_set():
+        raise QueryAbandoned("query abandoned by its watchdog")
 
 
 @dataclass
@@ -232,6 +266,7 @@ class Session:
         # the whole statement is execute_s; the cold-path work nested in
         # it (discovery, capture) carries its own compile_s bucket, which
         # the tracer's self-time accounting subtracts
+        _cancel_point()
         with obs.span("statement", cat="plan-node", bucket="execute_s",
                       kind=type(stmt).__name__, device=str(self.device)):
             if not isinstance(stmt, ast.Query):
@@ -247,6 +282,7 @@ class Session:
                 plan, _cols, disp = self._plan_fresh(stmt)
                 with self._exec_lock:
                     faults.check("execute", key=None)
+                    _cancel_point()
                     out = self._run_spmd(plan, None, None)
                     if out is None:
                         out = self.executor.execute_to_host(plan)
@@ -255,6 +291,7 @@ class Session:
                 with self._exec_lock:
                     if pin is not None and not self._pin_matches_live(pin):
                         faults.check("execute", key=norm)
+                        _cancel_point()
                         out = self._run_pinned(plan, pin)
                         return columnar.Table(
                             dict(zip(disp, out.columns.values())))
@@ -264,6 +301,7 @@ class Session:
                     if self.spine_cache is not None:
                         self._ran[norm] = run
                     faults.check("execute", key=norm)
+                    _cancel_point()
                     out = self._run_spmd(plan, norm, canon)
                     if out is None:
                         out = self.executor.execute_cached(*run, sql=norm)
@@ -635,13 +673,20 @@ class Session:
     @staticmethod
     def _canonicalize(plan, key: str):
         """Parameter-lift an optimized plan for shape-keyed compile
-        caching; None (→ text keying) when canonicalization fails, as in
-        the JAX session: a wrong analyzer costs compiles, never
-        answers."""
+        caching (a ``canonicalize`` span); None (→ text keying) on any
+        canonicalization failure, counted ``engine.canon.errors`` with
+        the query annotated ``canon_error``, or with ``NDSTPU_CANON=0``
+        (the JAX session's safety valve): a wrong analyzer costs
+        compiles, never answers."""
+        if os.environ.get("NDSTPU_CANON", "1") in ("", "0"):
+            return None
         from ndstpu_torch.analysis import canon
         try:
-            return canon.canonicalize(plan, query=key)
-        except Exception:  # noqa: BLE001 — the analyzer, never the data
+            with obs.span("canonicalize", cat="plan-node"):
+                return canon.canonicalize(plan, query=key)
+        except Exception as e:  # noqa: BLE001 — the analyzer, never the data
+            obs.inc("engine.canon.errors")
+            obs.annotate(canon_error=f"{type(e).__name__}: {e}")
             return None
 
     def _plan_fresh(self, stmt: "ast.Query",

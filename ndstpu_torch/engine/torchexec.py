@@ -36,10 +36,22 @@ Design, kept from jaxexec:
 * **Exact decimals.**  decimal(p,s) is scale-shifted int64; grouped sums
   go through the hand-written kernel ``ndstpu_torch.ops.segsum``.
 
+* **Doubles.**  A FLOAT64 column (every money column of the
+  ``--floats`` warehouse) sums in float64 (:mod:`ndstpu_torch.engine.fp64`)
+  and never reaches the decimal kernel, which still sums the integer
+  columns and the decimals that a query's own casts make.
+
 There is no numpy fallback: a plan node or expression without a port
 raises :class:`Unsupported`, with the NDS2xx code jaxexec uses where it
 has one, so no plan quietly leaves the device.  Nor is there a fallback
 from replay to eager: a capture or replay error raises.
+
+Spans and counters are jaxexec's names: ``replay`` (with its attribution,
+:class:`CompilingExecutor`), ``engine.fetched_bytes``,
+``engine.cache.device.*``, ``engine.dict.*``, ``engine.cache.*`` and the
+``engine.spmd.*`` and ``engine.h2d.*`` of out-of-core execution.
+``xla.persistent_cache.*`` has no counterpart (there is no XLA compile
+cache) and is not emitted.
 """
 
 from __future__ import annotations
@@ -76,6 +88,7 @@ from ndstpu_torch.engine.columnar import (
     Table,
     decimal,
 )
+from ndstpu_torch.io import gdict
 from ndstpu_torch.ops import segsum
 
 # Sentinels (int64 key space)
@@ -946,7 +959,16 @@ def _pdict_hits(value, op: str, swapped: bool, dictionary) -> np.ndarray:
     value (or IN tuple): len(dict)+1 bools, last entry False so the -1
     NULL code gathers False (cf. _dict_lookup_bool).  Host python string
     comparison matches np.unique's lexicographic dictionary order, so
-    ordered operators agree with the merged-dict literal path."""
+    ordered operators agree with the merged-dict literal path.  An ``=``
+    or ``<>`` binding is the bind-time lookup of one value's code, which
+    jaxexec makes through its frozen dictionary (``_gcode_np``) while the
+    global-dictionary layer is on: it counts ``engine.dict.lookups``, and
+    ``engine.dict.misses`` when the value is in no row's dictionary."""
+    if op in ("=", "<>") and gdict.enabled():
+        obs.inc("engine.dict.lookups")
+        v = str(value)
+        if not any(str(x) == v for x in dictionary):
+            obs.inc("engine.dict.misses")
     if op == "in":
         vals = set(str(v) for v in value)
         hits = [str(x) in vals for x in dictionary]
@@ -1720,7 +1742,10 @@ def _iota(n: int, device, dtype=torch.int32) -> torch.Tensor:
 
 def _segment_sum(vals: torch.Tensor, gid: torch.Tensor,
                  num_segments: int) -> torch.Tensor:
-    """jax.ops.segment_sum for in-range ids (every caller's gids are)."""
+    """jax.ops.segment_sum for in-range ids (every caller's gids are);
+    float sums through :mod:`fp64`, in a fixed order on every device."""
+    if vals.dtype.is_floating_point:
+        return fp64.segment_sum_compensated(vals, gid, num_segments)
     out = torch.zeros(num_segments, dtype=vals.dtype, device=vals.device)
     return out.index_add_(0, gid, vals)
 
@@ -2125,7 +2150,10 @@ class TorchExecutor:
         """The device copy of a catalog table, uploaded at its first use.
         A table held in host memory for this device (the out-of-core
         facts, :meth:`Catalog.on_host`) uploads only ``columns``, added
-        to its columns already up: its whole width need not fit."""
+        to its columns already up: its whole width need not fit.  A use
+        served by the copy of the catalog's version counts
+        ``engine.cache.device.hit``, an upload ``engine.cache.device.miss``
+        (jaxexec's counters)."""
         version = self.catalog.versions.get(name)
         cached = self._device_cache.get(name)
         if cached is not None and cached[0] != version:
@@ -2135,7 +2163,9 @@ class TorchExecutor:
                 not on_host(name, self.device):
             if cached is not None and (columns is None or all(
                     c in cached[1].columns for c in columns)):
+                obs.inc("engine.cache.device.hit")
                 return cached[1]
+            obs.inc("engine.cache.device.miss")
             dt = to_device(self.catalog.get(name), self.device)
             self._device_cache[name] = (version, dt)
             return dt
@@ -2144,7 +2174,9 @@ class TorchExecutor:
         need = [c for c in (list(columns) or t.column_names[:1])
                 if c not in have]
         if not need:
+            obs.inc("engine.cache.device.hit")
             return cached[1]
+        obs.inc("engine.cache.device.miss")
         part = to_device(Table({c: t.column(c) for c in need}), self.device)
         dt = DTable({**have, **part.columns}, part.alive)
         self._device_cache[name] = (version, dt)
@@ -3528,13 +3560,15 @@ class _CompiledPlan:
     # its memo signature (_seg_aliases): fp -> that one's; its plan reads
     # that one's DeviceResult in their place
     seg_alias: Optional[Dict[str, str]] = None
-    # the captured graph (CUDA), its static parameter buffers, its
-    # outputs (out, alive, ok), their pinned host copies, the segment
+    # the captured graph (CUDA), its static parameter buffers and their
+    # pinned host stages, its outputs (out, alive, ok), their pinned host
+    # copies, the segment
     # sum kernel's aux words, the kernel calls it holds and its pool
     # bytes; a parent's graph reads its own copies of its segments'
     # outputs, fingerprint -> (out, alive, ok), written before each replay
     graph: object = None
     bufs: Optional[dict] = None
+    stage: Optional[dict] = None
     outputs: Optional[tuple] = None
     host_out: Optional[list] = None
     aux: Optional[torch.Tensor] = None
@@ -3557,7 +3591,7 @@ class _CompiledPlan:
         """Release the graph and everything it holds; the size plan
         stays, so a later run recaptures with no discovery."""
         self.graph = self.bufs = self.outputs = self.host_out = None
-        self.aux = self.seg_bufs = None
+        self.aux = self.seg_bufs = self.stage = None
         self.pool_bytes = 0
 
 
@@ -3808,7 +3842,22 @@ class CompilingExecutor(TorchExecutor):
     ``n_memo_sig_misses`` (discoveries of a key compiled under another
     memo signature), ``n_oom_retries`` (eager or discovery runs rerun
     after evicting every graph) and ``n_replays`` (of query keys);
-    ``n_syncs`` is 1 for a replay (its one read-back).
+    ``n_syncs`` is 1 for a replay (its one read-back; the parameter writes
+    before it are queued from pinned stages and wait for nothing).
+
+    Attribution (jaxexec's): every replay adds its read-back bytes to the
+    ``engine.fetched_bytes`` counter and sets ``host_prep_s`` (entry to
+    the first replay: the tables' uploads, the parameter writes of
+    ``_ready`` and any capture) and ``fetched_bytes`` on its ``replay``
+    span.  With ``NDSTPU_ATTRIB=1`` (``attrib_enabled``) it also records
+    ``last_attribution``: those two, ``device_s`` (on a card, CUDA events
+    around the graphs' replays; on the CPU the operators' wall time),
+    ``fetch_s`` (the read-back copies; about 0 on the CPU), ``n_programs``
+    and ``flops``, which is always None: the JAX package's figure is XLA's
+    cost analysis, which has no counterpart here.  The events are read
+    after the replay's own synchronise, so attribution adds no host sync;
+    the split also goes on the span and on the query's summary
+    (``attribution``).
     """
 
     # bump when the pickle layout of save_compile_records changes
@@ -3850,6 +3899,12 @@ class CompilingExecutor(TorchExecutor):
         self.n_memo_sig_misses = 0
         self.n_oom_retries = 0
         self.n_replays = 0
+        # opt-in replay attribution (NDSTPU_ATTRIB=1, jaxexec's switch):
+        # each replay's split into host preparation, device and fetch
+        # (``last_attribution``); off by default
+        self.attrib_enabled = os.environ.get(
+            "NDSTPU_ATTRIB", "0") not in ("", "0")
+        self.last_attribution: Optional[dict] = None
 
     # -- entry points ----------------------------------------------------------
 
@@ -4262,12 +4317,13 @@ class CompilingExecutor(TorchExecutor):
         the harness's per-query split: ``compile_s`` for discovery's
         checked first replay, ``execute_s`` otherwise."""
         with obs.span("replay", cat="plan-node", bucket=bucket,
-                      n_programs=len(cp.programs)):
-            return self._replay_query_traced(cp, binding)
+                      n_programs=len(cp.programs)) as sp:
+            return self._replay_query_traced(cp, binding, sp)
 
     def _replay_query_traced(self, cp: _CompiledPlan,
-                             binding: Optional[ex.ParamBinding]
-                             ) -> Optional[Table]:
+                             binding: Optional[ex.ParamBinding],
+                             sp) -> Optional[Table]:
+        t_start = time.perf_counter()
         for s in cp.segs or ():
             if self._seg_compiled.get(s.slot) is not s:
                 obs.inc("engine.cache.seg_compiled.miss")
@@ -4280,31 +4336,68 @@ class CompilingExecutor(TorchExecutor):
             for name, cols in (g.table_cols or {}).items():
                 self._table_device(name, cols)
         values = binding.values if binding is not None else None
+        attrib = self.attrib_enabled
         if not self.capture:
-            segs = {fp: self._replay_run(s, self._host_args(s, binding),
-                                         values)
-                    for fp, s in zip(cp.seg_fps or (), cp.segs or ())}
-            out, alive, ok = self._replay_run(
-                cp, self._host_args(cp, binding), values, segs)
+            args = [(s, self._host_args(s, binding))
+                    for s in cp.segs or ()]
+            parent_args = self._host_args(cp, binding)
+            t_dispatch = time.perf_counter()
+            segs = {fp: self._replay_run(s, a, values)
+                    for fp, (s, a) in zip(cp.seg_fps or (), args)}
+            out, alive, ok = self._replay_run(cp, parent_args, values, segs)
+            t_ready = time.perf_counter()
             host = [ok, alive] + [t for n in out for t in out[n]]
+            t_fetched = time.perf_counter()
+            device_s, fetch_s = t_ready - t_dispatch, t_fetched - t_ready
         else:
             if not self._ready(cp.programs, binding, values):
                 return None
+            stream = torch.cuda.current_stream(self.device)
+            t_dispatch = time.perf_counter()
+            if attrib:
+                # events on the executor's stream, read after the one
+                # synchronise the replay makes anyway: no host sync added
+                marks = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(3)]
+                marks[0].record(stream)
             for fp, s in zip(cp.seg_fps or (), cp.segs or ()):
                 s.graph.replay()
                 for dst, src in zip(_flat(cp.seg_bufs[fp]),
                                     _flat(s.outputs)):
                     dst.copy_(src)
             cp.graph.replay()
+            if attrib:
+                marks[1].record(stream)
             out, alive, ok = cp.outputs
             host = cp.host_out
             for h, t in zip(host, [ok, alive] +
                             [t for n in out for t in out[n]]):
                 h.copy_(t, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
+            if attrib:
+                marks[2].record(stream)
+            stream.synchronize()
+            if attrib:
+                device_s = marks[0].elapsed_time(marks[1]) / 1e3
+                fetch_s = marks[1].elapsed_time(marks[2]) / 1e3
         self.n_replays += 1
         self.n_syncs = 1
         self.n_memo_hits = cp.memo_hits
+        fetched = sum(t.numel() * t.element_size() for t in host)
+        host_prep_s = round(t_dispatch - t_start, 5)
+        obs.inc("engine.fetched_bytes", fetched)
+        sp.set(host_prep_s=host_prep_s, fetched_bytes=fetched)
+        if attrib:
+            self.last_attribution = {
+                "host_prep_s": host_prep_s,
+                "device_s": round(device_s, 5),
+                "fetch_s": round(fetch_s, 5),
+                "fetched_bytes": fetched,
+                "n_programs": len(cp.programs),
+                "flops": None,
+            }
+            sp.set(device_s=self.last_attribution["device_s"],
+                   fetch_s=self.last_attribution["fetch_s"], flops=None)
+            obs.annotate(attribution=self.last_attribution)
         if not bool(host[0]):
             return None
         alive_np = host[1].numpy()
@@ -4350,12 +4443,17 @@ class CompilingExecutor(TorchExecutor):
     def _write_params(self, cp: _CompiledPlan, args: dict) -> bool:
         """Copy one binding's host arguments into the graph's buffers;
         False when one has another shape (an IN-list that coerced to
-        another length), which the recorded graph cannot take."""
+        another length), which the recorded graph cannot take.  Each
+        goes through its pinned stage and is queued on the replay's
+        stream, so the replay's read-back stays its one host sync (a copy
+        from pageable memory waits for the card); the last replay's
+        copies are done, since it ended in that sync."""
         for k, v in args.items():
             if tuple(cp.bufs[k].shape) != v.shape:
                 return False
         for k, v in args.items():
-            cp.bufs[k].copy_(torch.as_tensor(v))
+            cp.stage[k].copy_(torch.as_tensor(v))
+            cp.bufs[k].copy_(cp.stage[k], non_blocking=True)
         return True
 
     def _capture(self, graphs: list, binding, values, keep) -> None:
@@ -4425,6 +4523,8 @@ class CompilingExecutor(TorchExecutor):
                       stream) -> None:
         cp.bufs = {k: torch.as_tensor(v).to(self.device)
                    for k, v in args.items()}
+        cp.stage = {k: torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+                    for k, b in cp.bufs.items()}
         # the parent's own buffers for its segments' outputs
         cp.seg_bufs = {
             fp: _empty_like(s.outputs)
@@ -4506,9 +4606,13 @@ class CompilingExecutor(TorchExecutor):
 
     def _table_fingerprint(self, name: str) -> tuple:
         """Cheap content identity for a catalog table: row count + a
-        prefix checksum over integer-backed columns.  Guards persisted
-        size-plan records against a *different dataset* — per-process
-        version counters cannot (they restart at 1)."""
+        prefix checksum over integer-backed columns + a checksum of the
+        columns' types.  Guards persisted size-plan records against a
+        *different dataset* — per-process version counters cannot (they
+        restart at 1) — and against the same data at other types: a
+        decimal warehouse's record preloaded into a session over the
+        ``--floats`` warehouse (whose canonical keys are the same) is
+        dropped, and its key rediscovers."""
         t = self.catalog.get(name)
         chk = 0
         for cname in t.column_names[:3]:
@@ -4518,7 +4622,9 @@ class CompilingExecutor(TorchExecutor):
             if data.dtype.kind in "iu":
                 chk ^= int(np.asarray(data, dtype=np.int64).sum()) & \
                     (2 ** 61 - 1)
-        return (name, t.num_rows, chk)
+        types = zlib.crc32(repr([str(t.column(c).ctype)
+                                 for c in t.column_names]).encode())
+        return (name, t.num_rows, chk, types)
 
     def _record(self, cp: _CompiledPlan) -> tuple:
         """What a saved record keeps of one program (KeyError: it reads a

@@ -57,10 +57,20 @@ watchdog's session rebuild.  With ``spmd.chunk_rows`` set, ``--generate``
 keeps the seven fact tables in host memory (``datagen.generate(...,
 host_facts=True)``), and queries stream them through the card.
 
-Left for later slices of the port, and not accepted here:
-``--static_check``, ``--xla_cache_dir`` (the XLA compile cache has no
-counterpart) and ``--floats``.  ``jax.*`` engine properties are recorded in
-the summaries and applied to nothing.
+``--floats`` runs the reference benchmark's decimals-as-doubles
+configuration: the warehouse is read with the FLOAT64 schemas
+(``transcode --floats``'s files) or generated with every DECIMAL column as
+FLOAT64 (``datagen.generate(..., use_decimal=False)``), and the summaries'
+engine settings record ``floats``.  ``--static_check`` runs the static
+analyzer (:mod:`ndstpu_torch.analysis`) over the stream before anything
+executes and refuses a stream with an error-severity diagnostic
+(:func:`static_check`).  The JAX command skips the gate on its ``cpu``
+engine, a numpy interpreter that lowers everything; the port's ``--device
+cpu`` runs the card's executor, so the gate holds on both devices.
+
+Not accepted here: ``--xla_cache_dir`` (the XLA compile cache has no
+counterpart).  ``jax.*`` engine properties are recorded in the summaries
+and applied to nothing.
 """
 
 from __future__ import annotations
@@ -79,7 +89,7 @@ from ndstpu_torch import faults, obs
 from ndstpu_torch.check import (check_json_summary_folder,
                                 check_query_subset_exists)
 from ndstpu_torch.engine import columnar
-from ndstpu_torch.engine.session import Session
+from ndstpu_torch.engine.session import Session, abandonable
 from ndstpu_torch.harness import admission, progress
 from ndstpu_torch.harness.report import BenchReport
 from ndstpu_torch.io import atomic, loader
@@ -133,6 +143,47 @@ def ensure_valid_column_names(table: columnar.Table) -> columnar.Table:
 def get_query_subset(query_dict, subset: List[str]):
     check_query_subset_exists(query_dict, subset)
     return OrderedDict((q, query_dict[q]) for q in subset)
+
+
+def static_check(sess: Session, query_dict, device,
+                 scale_factor=None) -> List[str]:
+    """``--static_check`` gate (the JAX package's ``static_check``): run
+    the static analyzer over every queued query (plan only: no data, no
+    device) and return the queries with error-severity diagnostics
+    outside a subquery, printing each diagnostic's code and plan
+    location.  A part the planner refuses gates too (``NDS000``).  The
+    analyzer reads the decimal schemas, under ``--floats`` too, as the
+    JAX package's does.  ``device`` is named for the record: the port
+    runs one executor on every device, so every device gates."""
+    from ndstpu_torch import analysis
+
+    try:
+        sf = float(scale_factor)
+    except (TypeError, ValueError):
+        sf = None
+    tables = analysis.schema_tables()
+    offenders: List[str] = []
+    for name, sql in query_dict.items():
+        try:
+            plan, _cols = sess.plan(sql)
+        except Exception as e:  # noqa: BLE001 — the run would die on it
+            offenders.append(name)
+            print(f"STATIC CHECK {name}: NDS000 at plan: {e}")
+            continue
+        try:
+            res = analysis.analyze_plan(plan, tables=tables, query=name,
+                                        scale_factor=sf)
+        except Exception as e:  # noqa: BLE001 — analyzer gaps never gate
+            print(f"WARNING: static check could not analyze {name}: {e}")
+            continue
+        gating = [d for d in res.diagnostics if d.severity == "error"
+                  and "/subquery[" not in d.path]
+        if gating:
+            offenders.append(name)
+            for d in gating:
+                print(f"STATIC CHECK {name}: {d.code} at {d.path}: "
+                      f"{d.message}")
+    return offenders
 
 
 def run_one_query(session: Session, query: str, query_name: str,
@@ -363,6 +414,7 @@ def power_fingerprint(args) -> str:
     import hashlib
     parts = [
         str(getattr(args, "device", "")),
+        "floats" if getattr(args, "floats", False) else "decimal",
         str(getattr(args, "scale_factor", "")),
         str(getattr(args, "run_seed", "")),
         os.path.basename(getattr(args, "query_stream_file", "") or ""),
@@ -375,14 +427,18 @@ def power_fingerprint(args) -> str:
 def _load(args, device, host_facts: bool = False):
     """The load phase's catalog: generated on ``device`` with
     ``--generate`` (the fact tables in host memory with ``host_facts``),
-    read from the warehouse's files otherwise."""
+    read from the warehouse's files otherwise; its DECIMAL columns as
+    FLOAT64 with ``--floats``."""
+    use_decimal = not getattr(args, "floats", False)
     if args.generate is None:
-        return loader.load_catalog(args.input_prefix)
+        return loader.load_catalog(args.input_prefix,
+                                   use_decimal=use_decimal)
     import torch
 
     from ndstpu_torch import datagen
     catalog = datagen.generate(args.generate, args.generate_seed, device,
-                               host_facts=host_facts)
+                               host_facts=host_facts,
+                               use_decimal=use_decimal)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return catalog
@@ -464,6 +520,8 @@ def run_query_stream(args) -> None:
     spmd = spmd_settings(engine_conf)
     engine_conf.setdefault("device", args.device)
     engine_conf.setdefault("input_format", args.input_format)
+    if args.floats:
+        engine_conf.setdefault("floats", "true")
 
     query_dict = gen_sql_from_stream(args.query_stream_file)
 
@@ -498,6 +556,20 @@ def run_query_stream(args) -> None:
         query_dict = get_query_subset(query_dict,
                                       args.sub_queries.split(","))
 
+    if args.static_check:
+        with obs.span("static_check", cat="phase"):
+            offenders = static_check(sess, query_dict, args.device,
+                                     scale_factor=args.scale_factor)
+        if offenders:
+            # the JAX command's text, the device for its engine
+            raise SystemExit(
+                "static check failed: query part(s) "
+                f"{', '.join(offenders)} cannot lower on "
+                f"{args.device} (diagnostics above); fix the query "
+                "or drop --static_check to run with runtime fallback")
+        print(f"static check passed: {len(query_dict)} part(s) lower on "
+              f"{args.device}")
+
     # concurrent-stream admission: at most N streams execute on the
     # device at once (set by a throughput runner via env)
     gate = admission.from_env()
@@ -505,7 +577,9 @@ def run_query_stream(args) -> None:
     # per-query watchdog: a wedged query otherwise blocks the stream
     # forever.  The abandoned thread keeps only the OLD session, so the
     # stream continues on a fresh one (sharing the device tables, with
-    # the records preloaded again).  Abandoned threads are tracked in
+    # the records preloaded again).  The abandoned thread stops at its
+    # next cancellation point (``session.abandonable``), so once its hang
+    # ends it discovers and counts nothing.  Abandoned threads are tracked in
     # `zombies`; before each query the stream grants them a short grace
     # join, and any still-alive zombie is recorded in the query's
     # summary (`zombieQueries`): it may still use the device, and
@@ -533,11 +607,13 @@ def run_query_stream(args) -> None:
                                  args.output_prefix, args.output_format)
         import threading
         slot: dict = {}
+        abandoned = threading.Event()
 
         def work(s=sess_holder["s"]):
             try:
-                run_one_query(s, q_content, query_name,
-                              args.output_prefix, args.output_format)
+                with abandonable(abandoned):
+                    run_one_query(s, q_content, query_name,
+                                  args.output_prefix, args.output_format)
                 slot["ok"] = True
             except Exception as e:  # noqa: BLE001
                 slot["err"] = e
@@ -546,6 +622,8 @@ def run_query_stream(args) -> None:
         th.start()
         th.join(watchdog_s)
         if th.is_alive():
+            # the thread stops at its next cancellation point
+            abandoned.set()
             zombies.append({"th": th, "name": query_name, "graced": False})
             try:
                 fresh = sess_holder["s"].fresh()
@@ -785,14 +863,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--run_seed", default="unknown",
                    help="seed for the resume and ledger fingerprints "
                         "(set by --generate)")
+    p.add_argument("--floats", action="store_true",
+                   help="double mode (no decimals): every DECIMAL "
+                        "column of the schema as FLOAT64")
     p.add_argument("--resume", action="store_true",
                    help="crash-safe resume: replay the per-query "
                         "progress journal (<time_log>.progress.jsonl) "
                         "and skip queries already completed by a "
                         "previous run of the same fingerprint (device, "
-                        "scale factor, seed, stream, subset, "
+                        "floats, scale factor, seed, stream, subset, "
                         "warehouse); their time-log rows are carried "
                         "over")
+    p.add_argument("--static_check", action="store_true",
+                   help="run the static plan analyzer over the stream "
+                        "before executing anything and reject queries "
+                        "with error-severity diagnostics (code + plan "
+                        "path printed), on every device")
     return p
 
 

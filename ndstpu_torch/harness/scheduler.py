@@ -48,7 +48,11 @@ Of the engine properties the ``spmd.*`` ones are applied to the inproc
 mode's shared session (the JAX package's scheduler.py:361-368; out-of-core
 execution, as in the power run); the rest are recorded and applied to
 nothing (the JAX package's ``apply_engine_properties`` and its ``jax.*``
-settings).  Left for a later slice: ``--static_check``.
+settings).  ``--floats`` must be shared by every stream and loads or
+generates the shared warehouse with its DECIMAL columns as FLOAT64;
+``--static_check`` on any stream runs the power run's gate
+(:func:`power.static_check`) over every stream's parts before anything
+executes, on every device.
 """
 
 from __future__ import annotations
@@ -345,7 +349,7 @@ def run_streams_inproc(stream_ids: List[str], cmd_template: List[str],
     # the whole point is ONE engine: refuse stream templates that
     # resolve to different warehouses/devices instead of guessing
     for flag in ("input_prefix", "generate", "generate_seed", "device",
-                 "input_format", "property_file", "property",
+                 "input_format", "floats", "property_file", "property",
                  "compile_records"):
         vals = {str(getattr(ns, flag, None)) for ns in streams.values()}
         if len(vals) > 1:
@@ -363,6 +367,8 @@ def run_streams_inproc(stream_ids: List[str], cmd_template: List[str],
     engine_conf.setdefault("device", ns0.device)
     engine_conf.setdefault("input_format", ns0.input_format)
     engine_conf.setdefault("throughput_mode", "inproc")
+    if ns0.floats:
+        engine_conf.setdefault("floats", "true")
 
     # shared context: ONE catalog load / session / set of device tables
     # for all streams (vs one per process in --mode process)
@@ -392,6 +398,19 @@ def run_streams_inproc(stream_ids: List[str], cmd_template: List[str],
         stream_queries[sid] = qd
     for folder in {ns.json_summary_folder for ns in streams.values()}:
         check_json_summary_folder(folder)
+
+    if any(ns.static_check for ns in streams.values()):
+        merged: "OrderedDict[str, str]" = OrderedDict()
+        for qd in stream_queries.values():
+            merged.update(qd)
+        with obs.span("static_check", cat="phase"):
+            offenders = power.static_check(
+                session, merged, ns0.device,
+                scale_factor=ns0.scale_factor)
+        if offenders:
+            raise SystemExit(
+                "static check failed: query part(s) "
+                f"{', '.join(offenders)} cannot lower on {ns0.device}")
 
     # ledger priors drive the cheapest-cold-first pick order; the port
     # discovers on either device, so a key's first run is cold unless

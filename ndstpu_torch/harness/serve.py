@@ -43,7 +43,8 @@ Examples::
     python -m ndstpu_torch.harness.serve client \\
         --socket unix:/a.sock,tcp:127.0.0.1:9001 --op probe
 
-The JAX command's ``--floats`` is left out, as in the port's power run.
+``--floats`` (``server`` and ``fleet``) serves the decimals-as-doubles
+warehouse, as the power run's ``--floats``.
 """
 
 from __future__ import annotations
@@ -88,6 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run-ledger path ('none' disables)")
     s.add_argument("--scale_factor", default="unknown",
                    help="recorded in the ledger rows (set by --generate)")
+    s.add_argument("--floats", action="store_true",
+                   help="double mode (no decimals)")
     s.add_argument("--slots", type=int, default=1,
                    help="device admission slots (InprocAdmission)")
     s.add_argument("--queue_depth", default="64",
@@ -127,6 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "run_dir/compile_records.pkl)")
     f.add_argument("--ledger", default="none")
     f.add_argument("--scale_factor", default="unknown")
+    f.add_argument("--floats", action="store_true",
+                   help="double mode (no decimals), on every replica")
     f.add_argument("--slots", type=int, default=1)
     f.add_argument("--queue_depth", default="64",
                    help="per-replica admission depth; 'auto' derives "
@@ -220,6 +225,7 @@ def _run_server(args) -> int:
         slo_path=args.slo or os.path.join(sd, "SLO.json"),
         ledger_path=args.ledger,
         scale_factor=args.scale_factor,
+        floats=args.floats,
         slots=args.slots,
         queue_depth=_parse_depth(args.queue_depth),
         tenant_tokens=args.tenant_tokens,
@@ -252,6 +258,7 @@ def _run_fleet(args) -> int:
         compile_records=args.compile_records,
         ledger_path=args.ledger,
         scale_factor=args.scale_factor,
+        floats=args.floats,
         slots=args.slots,
         queue_depth=_parse_depth(args.queue_depth),
         aot_corpus=args.aot_corpus,

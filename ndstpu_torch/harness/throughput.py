@@ -29,6 +29,11 @@ reference fans out concurrent spark-submit processes with
   each stream's file and ``--sub_queries``; the server holds the
   warehouse and the device.
 
+``--floats`` (the decimals-as-doubles warehouse) goes in the wrapped
+power command in the process and inproc modes, where every stream must
+give it alike, and to the server (``harness.serve server --floats``) in
+the serve mode.
+
 Streams run on ``cuda`` unless the wrapped power command passes ``--device
 cpu``::
 

@@ -115,9 +115,11 @@ def _postprocess_partition_dtypes(table: str, at):
 
 
 def load_catalog(warehouse: str, tables: Optional[List[str]] = None,
+                 use_decimal: bool = True,
                  max_workers: Optional[int] = None) -> Catalog:
     """Load a transcoded warehouse into a catalog, with the decimal
-    schemas.
+    schemas, or with ``use_decimal=False`` the FLOAT64 ones (a
+    ``transcode --floats`` warehouse, whose money columns are doubles).
 
     Per-table scan (pyarrow file reads) and decode (``from_arrow``
     dictionary encoding / decimal scaling) run on a bounded worker
@@ -130,8 +132,8 @@ def load_catalog(warehouse: str, tables: Optional[List[str]] = None,
     if tables is None:
         tables = [t for t in nds_schema.SOURCE_TABLE_NAMES
                   if os.path.isdir(os.path.join(warehouse, t))]
-    schemas = {**nds_schema.get_schemas(True),
-               **nds_schema.get_maintenance_schemas(True)}
+    schemas = {**nds_schema.get_schemas(use_decimal),
+               **nds_schema.get_maintenance_schemas(use_decimal)}
 
     def load_one(t: str) -> columnar.Table:
         at = read_warehouse_table(warehouse, t)

@@ -292,22 +292,26 @@ def capturing(device):
 
 
 @contextlib.contextmanager
-def counting_replays():
+def counting_replays(host: bool = False):
     """Count the ``segsum_decimal`` launches that graph replays make in
     the block: ``torch.profiler`` records the card's kernels (CUDA
-    activity only), and the device events whose kernel name holds
-    ``segsum_decimal``, less the wrapper's own launches in the block, are
-    added to ``REPLAY_LAUNCHES``.  Yields a dict whose ``"launches"`` is
-    that count once the block ends."""
+    activity; with ``host`` the host's calls too), and the device events
+    whose kernel name holds ``segsum_decimal``, less the wrapper's own
+    launches in the block, are added to ``REPLAY_LAUNCHES``.  Yields a
+    dict whose ``"launches"`` is that count, and ``"events"`` the
+    profiler's events, once the block ends."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     global REPLAY_LAUNCHES
     out = {"launches": 0}
     before = LAUNCHES
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if host else [])
+    with profile(activities=activities) as prof:
         yield out
         torch.cuda.synchronize()
-    seen = sum(1 for e in prof.events()
+    out["events"] = prof.events()
+    seen = sum(1 for e in out["events"]
                if e.device_type == DeviceType.CUDA
                and "segsum_decimal" in e.name)
     out["launches"] = seen - (LAUNCHES - before)

@@ -61,6 +61,13 @@ out-of-memory retry give memory back to either.  A spine's device state
 fact's columns) is released when the spine returns: a cached executor
 re-stages it from the host, so no query holds the card between runs.
 
+Spans and counters are the JAX package's names (``spine_stage``,
+``spine_trace_exec``, ``engine.spmd.*``, ``engine.stream.*``,
+``engine.h2d.*``, ``io.prefetch.*``), except two that have no
+counterpart on one rank: ``exchange.shuffle_bytes`` (a world of one moves
+no rows between ranks) and ``xla.persistent_cache.*`` (there is no XLA
+compile cache); neither is emitted.
+
 Row order: the JAX package restores a chunked row spine's order with a
 stable argsort on ``__rowid__``, and its tails sort by (keys, row id);
 the port does the same with stable ``torch.sort``/``numpy`` sorts, so a
@@ -1574,11 +1581,13 @@ class DistributedPlanExecutor:
             else "fits")
         self.streams.append((self.fact.table, n, m, n_launches, why))
         obs.inc("engine.spmd.traces")
+        # the JAX package's span name: its first launch also traces and
+        # compiles; here every launch runs eagerly
         if not chunked:
-            with obs.span("spine_exec", cat="plan-node"):
+            with obs.span("spine_trace_exec", cat="plan-node"):
                 return self._post_spine(self._launch(self._fact_args(0), 0))
         self._build_stream(fact_table, names, n, m, n_launches, depth)
-        with obs.span("spine_exec", cat="plan-node", chunked=True):
+        with obs.span("spine_trace_exec", cat="plan-node", chunked=True):
             return self._run_chunks()
 
     def _fact_args(self, ci: int) -> list:

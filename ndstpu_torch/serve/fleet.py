@@ -82,6 +82,7 @@ class FleetConfig:
     compile_records: Optional[str] = None  # SHARED across replicas
     ledger_path: Optional[str] = "none"
     scale_factor: str = "unknown"
+    floats: bool = False
     slots: int = 1
     queue_depth: Optional[int] = 64        # None -> memplan auto
     aot_corpus: Optional[str] = None
@@ -233,6 +234,8 @@ class FleetSupervisor:
         if cfg.generate is not None:
             argv += ["--generate", f"{cfg.generate:g}",
                      "--generate_seed", str(cfg.generate_seed)]
+        if cfg.floats:
+            argv += ["--floats"]
         if cfg.query_timeout_s is not None:
             argv += ["--query_timeout_s", str(cfg.query_timeout_s)]
         log = open(os.path.join(cfg.run_dir,

@@ -30,8 +30,10 @@ Execution model:
 Only executor threads run work on the device, one query at a time
 (``Session._exec_lock``): a reader thread plans (host work) and answers
 the ops verbs from host state, so it never syncs with the card while a
-graph is being captured.  A query that the watchdog abandons cannot be
-cancelled while it runs on the card; the fresh session takes its graph
+graph is being captured.  A query that the watchdog abandons stops at
+its next cancellation point (``session.abandonable``: before it plans,
+and before it discovers or replays), but cannot be stopped while it runs
+on the card; the fresh session takes its graph
 budget from the free memory at its own first capture, so it never counts
 on memory that the abandoned query still holds.  A failed kernel build
 or launch fails its request as any engine error does; nothing reruns on
@@ -55,8 +57,8 @@ precompiles a full query corpus before readiness, ``replica_id`` tags
 probe/health docs, and ``queue_depth=None`` derives admission depth
 from the memplan device-memory model (``memplan.admission_budget``).
 
-The JAX server's ``floats`` (a warehouse with decimals as floats) is
-left out, as in the port's power run.
+``floats`` serves the decimals-as-doubles warehouse (its DECIMAL columns
+read or generated as FLOAT64), as the power run's ``--floats``.
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ import torch
 
 from ndstpu_torch import faults, obs
 from ndstpu_torch.engine import columnar
-from ndstpu_torch.engine.session import Session
+from ndstpu_torch.engine.session import Session, abandonable
 from ndstpu_torch.engine.torchexec import resolve_device
 from ndstpu_torch.engine.sql import ast, parse_statement
 from ndstpu_torch.harness import admission as adm
@@ -103,6 +105,7 @@ class ServeConfig:
     slo_path: Optional[str] = None
     ledger_path: Optional[str] = None
     scale_factor: str = "unknown"
+    floats: bool = False
     slots: int = 1
     queue_depth: Optional[int] = 64  # None/0 -> memplan admission model
     tenant_tokens: float = 64.0
@@ -632,12 +635,14 @@ class QueryServer:
             if timeout <= 0:
                 return self._run_query(self.session, req)
             slot: dict = {}
+            abandoned = threading.Event()
             with self._session_lock:
                 sess = self.session
 
             def work():
                 try:
-                    slot["result"] = self._run_query(sess, req)
+                    with abandonable(abandoned):
+                        slot["result"] = self._run_query(sess, req)
                 except Exception as e:  # noqa: BLE001
                     slot["err"] = e
 
@@ -648,7 +653,9 @@ class QueryServer:
             if th.is_alive():
                 # power watchdog idiom: abandon the wedged thread and
                 # swap every future request onto a fresh session — the
-                # drain path depends on this never blocking forever
+                # drain path depends on this never blocking forever; the
+                # thread stops at its next cancellation point
+                abandoned.set()
                 self._zombies.append({"th": th, "name": req["id"]})
                 obs.inc("serve.watchdog.abandoned")
                 self._swap_session(sess)
